@@ -1,0 +1,80 @@
+"""pyfft_tpu_torch — the PyTorch / CUDA port of ``pyfft_tpu``.
+
+A second package beside the JAX one, under the same public names and
+return contracts.  It imports ``torch`` (with numpy, and scipy where the JAX
+package uses it) and never ``jax`` or ``pyfft_tpu``.  This first slice is
+the headline chain: causal FIR -> global-mean detrend -> Hann segments ->
+DFT -> averaged auto-/cross-powers -> ``fft_pwelch``'s coherence, phase and
+``fftinfosc``.
+
+Map from the JAX package:
+
+=================================  ======================================
+``pyfft_tpu``                      ``pyfft_tpu_torch``
+=================================  ======================================
+``utils/structure.py``             ``utils/structure.py`` (no pytree)
+``utils/detrend.py``               ``utils/detrend.py`` (tensors)
+``windows.py``                     ``windows.py`` (copy)
+``plotting.py``                    ``plotting.py`` (copy)
+``segmentation.py``                ``segmentation.py`` (framing in torch)
+``ops/pallas_fir.py``              ``ops/fir.py`` + ``csrc/fir.cu``
+``ops/pallas_welch3.py`` and the   ``ops/welch.py`` + ``csrc/welch.cu``
+entries of ``ops/pallas_welch.py``
+(kernel build and load)            ``ops/_build.py``
+``filters.py`` (FIR part)          ``filters.py``
+``spectral.py``                    ``spectral.py`` (no mesh tier yet)
+``config.py``                      ``config.py`` (+ ``from_reference``)
+=================================  ======================================
+
+CUDA tensors go through the hand-written kernels in ``csrc/`` (built with
+``nvcc`` at first use); CPU tensors take each kernel's plain PyTorch
+version.  The rest of the JAX package waits for later slices (ROADMAP.md).
+"""
+
+__version__ = "0.1.0"
+
+from . import utils
+# `windows` is a callable module, as in the JAX package
+from . import windows
+from .windows import get_window
+from . import segmentation
+from . import ops
+from . import filters
+from .spectral import (
+    fft_pwelch,
+    fftinfosc,
+    Cxy_Cxy2,
+    welch_cross_spectra,
+    welch_filtered_cross_spectra,
+    csd_oracle,
+    resolve_fft_backend,
+)
+from . import config
+from .config import SpectralConfig, welch_psd
+from .utils.detrend import (
+    detrend_none,
+    detrend_mean,
+    detrend_linear,
+)
+
+__all__ = [
+    "windows",
+    "get_window",
+    "ops",
+    "filters",
+    "config",
+    "SpectralConfig",
+    "welch_psd",
+    "fft_pwelch",
+    "fftinfosc",
+    "Cxy_Cxy2",
+    "welch_cross_spectra",
+    "welch_filtered_cross_spectra",
+    "csd_oracle",
+    "resolve_fft_backend",
+    "detrend_none",
+    "detrend_mean",
+    "detrend_linear",
+    "segmentation",
+    "utils",
+]

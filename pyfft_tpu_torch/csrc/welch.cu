@@ -1,0 +1,293 @@
+// Kernel B: fused causal FIR + global-mean detrend + Welch cross-powers.
+//
+// Replaces pyfft_tpu/ops/pallas_welch3.py::_v3_fused_kernel (with
+// _assemble_rows and _chunk_math) and ::_v3_kernel, its sibling for an
+// already-filtered signal; one kernel that takes any nt covers both.
+//
+// For segment s (start s*hop, s < navr) of each signal the block forms
+//   v[n] = (fir(sig)[start+n] - mean) * win[n],   n < N = nwins,
+// takes its N-point DFT V and accumulates, for the first nfreq bins,
+//   col 0:      |X|^2
+//   col c + 1:  |Y_c|^2,  Re(Y_c conj X),  Im(Y_c conj X)
+// where X is the reference signal's transform.  Real signals (cplx = 0) are
+// rows of float32; complex ones (cplx = 1) are interleaved complex64 and
+// filter their real and imaginary parts separately.  The filtered signal
+// never goes to device memory.
+//
+// What bounds it on the card: per segment and column about
+// 5*N*log2(N) flops of FFT (twice for c >= 1, whose block recomputes X)
+// plus 2*K flops of filter per sample, all through shared memory, against
+// about two reads of the signal (50% overlap).  The radix-2 passes are
+// bound by shared-memory traffic and the __syncthreads between them.
+// Design: grid (group of segments) x (column); per segment one block
+// stages N+K-1 raw samples in shared memory, filters them with fir_point
+// (fir.cuh), subtracts the mean and windows them into a complex buffer in
+// bit-reversed order, and runs an in-place radix-2 FFT with twiddles from a
+// float64 host table.  It keeps its bins of X in registers while the
+// buffer is reused for Y_c.  Sums over segments are held in float64
+// registers; each block writes per-group partials, which welch_reduce sums
+// in a fixed order and scales by `norm`.
+#include <cuda_runtime.h>
+
+#include "fir.cuh"
+
+namespace {
+
+constexpr int kMaxThreads = 512;
+constexpr int kMinN = 16;
+constexpr int kMaxN = 16384;
+
+// Stage component `comp` of the raw samples [start-(K-1), start-(K-1)+span)
+// of one signal into `raw` (zeros before the signal starts).
+__device__ __forceinline__ void stage(float* raw, const float* sig,
+                                      int estride, int comp, long long start,
+                                      int span, int K) {
+    for (int j = threadIdx.x; j < span; j += blockDim.x) {
+        const long long t = start - (K - 1) + j;
+        raw[j] = t >= 0 ? __ldg(sig + t * estride + comp) : 0.f;
+    }
+}
+
+// buf[bitrev(n)] = (fir(sig) - mean) * win for one segment.
+__device__ void load_segment(float2* buf, float* raw, const float* taps,
+                             int K, const float* sig, int estride, int cplx,
+                             float mean_re, float mean_im,
+                             const float* __restrict__ win, long long start,
+                             int N, int logN) {
+    const int span = N + K - 1;
+    stage(raw, sig, estride, 0, start, span, K);
+    __syncthreads();
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+        const float v = (fir_point(raw + n, taps, K) - mean_re) * __ldg(win + n);
+        buf[__brev(n) >> (32 - logN)] = make_float2(v, 0.f);
+    }
+    __syncthreads();
+    if (cplx) {
+        stage(raw, sig, estride, 1, start, span, K);
+        __syncthreads();
+        for (int n = threadIdx.x; n < N; n += blockDim.x) {
+            const float v =
+                (fir_point(raw + n, taps, K) - mean_im) * __ldg(win + n);
+            buf[__brev(n) >> (32 - logN)].y = v;
+        }
+        __syncthreads();
+    }
+}
+
+// In-place radix-2 decimation-in-time FFT of a bit-reversed buffer.
+// tw[m] = exp(-2 pi i m / N), m < N/2.
+__device__ void fft_radix2(float2* buf, const float2* __restrict__ tw, int N,
+                           int logN) {
+    for (int s = 1; s <= logN; ++s) {
+        const int half = 1 << (s - 1);
+        const int tstep = N >> s;
+        for (int i = threadIdx.x; i < (N >> 1); i += blockDim.x) {
+            const int p = i & (half - 1);
+            const int a = ((i - p) << 1) + p;
+            const int b = a + half;
+            const float2 w = __ldg(tw + p * tstep);
+            const float2 u = buf[a];
+            const float2 v = buf[b];
+            const float tr = v.x * w.x - v.y * w.y;
+            const float ti = v.x * w.y + v.y * w.x;
+            buf[a] = make_float2(u.x + tr, u.y + ti);
+            buf[b] = make_float2(u.x - tr, u.y - ti);
+        }
+        __syncthreads();
+    }
+}
+
+// B = bins per thread; bin k of thread t is t + b*blockDim.x, b < B.
+template <int B>
+__global__ void __launch_bounds__(kMaxThreads, (B <= 4) ? 2 : 1)
+welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
+             long long y_row_stride, int estride, int cplx,
+             const float* __restrict__ taps_g, int K,
+             const float* __restrict__ means, const float* __restrict__ win,
+             const float2* __restrict__ tw, double* __restrict__ part, int N,
+             int logN, int hop, int navr, int seg_per_group, int nfreq) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    float2* buf = reinterpret_cast<float2*>(smem);
+    float* raw = reinterpret_cast<float*>(buf + N);
+    float* taps = raw + N + K - 1;
+    const int col = blockIdx.y;
+    const int T = blockDim.x;
+    for (int k = threadIdx.x; k < K; k += T) taps[k] = taps_g[k];
+    // (load_segment synchronises before the first read of `taps`)
+
+    const int nc = cplx ? 2 : 1;
+    const float mx_re = means[0];
+    const float mx_im = cplx ? means[1] : 0.f;
+    const float* ysig = col ? y + static_cast<long long>(col - 1) * y_row_stride
+                            : nullptr;
+    const float my_re = col ? means[nc * col] : 0.f;
+    const float my_im = (col && cplx) ? means[nc * col + 1] : 0.f;
+
+    double a0[B], a1[B], a2[B];
+    float xre[B], xim[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+        a0[b] = a1[b] = a2[b] = 0.0;
+        xre[b] = xim[b] = 0.f;
+    }
+
+    const int s0 = blockIdx.x * seg_per_group;
+    const int s1 = min(navr, s0 + seg_per_group);
+    for (int s = s0; s < s1; ++s) {
+        const long long start = static_cast<long long>(s) * hop;
+        load_segment(buf, raw, taps, K, x, estride, cplx, mx_re, mx_im, win,
+                     start, N, logN);
+        fft_radix2(buf, tw, N, logN);
+        if (col == 0) {
+#pragma unroll
+            for (int b = 0; b < B; ++b) {
+                const int k = threadIdx.x + b * T;
+                if (k < nfreq) {
+                    const float2 z = buf[k];
+                    a0[b] += static_cast<double>(z.x) * z.x +
+                             static_cast<double>(z.y) * z.y;
+                }
+            }
+            __syncthreads();
+            continue;
+        }
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+            const int k = threadIdx.x + b * T;
+            if (k < nfreq) {
+                xre[b] = buf[k].x;
+                xim[b] = buf[k].y;
+            }
+        }
+        __syncthreads();
+        load_segment(buf, raw, taps, K, ysig, estride, cplx, my_re, my_im,
+                     win, start, N, logN);
+        fft_radix2(buf, tw, N, logN);
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+            const int k = threadIdx.x + b * T;
+            if (k < nfreq) {
+                const double yr = buf[k].x, yi = buf[k].y;
+                const double xr = xre[b], xi = xim[b];
+                a0[b] += yr * yr + yi * yi;
+                a1[b] += yr * xr + yi * xi;
+                a2[b] += yi * xr - yr * xi;
+            }
+        }
+        __syncthreads();
+    }
+
+    double* out = part + (static_cast<long long>(blockIdx.x) * gridDim.y + col) *
+                             3 * nfreq;
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+        const int k = threadIdx.x + b * T;
+        if (k < nfreq) {
+            out[k] = a0[b];
+            out[nfreq + k] = a1[b];
+            out[2 * nfreq + k] = a2[b];
+        }
+    }
+}
+
+// out[i] = norm * sum_g part[g, i], summed in group order in float64.
+__global__ void welch_reduce(const double* __restrict__ part,
+                             float* __restrict__ out, int ngroups,
+                             long long per_group, double norm) {
+    const long long i =
+        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= per_group) return;
+    double acc = 0.0;
+    for (int g = 0; g < ngroups; ++g) acc += part[g * per_group + i];
+    out[i] = static_cast<float>(acc * norm);
+}
+
+struct Geometry {
+    int threads, bins, logN;
+    size_t smem;
+};
+
+Geometry geometry(int N, int K) {
+    Geometry g;
+    g.threads = N / 4 < 32 ? 32 : (N / 4 > kMaxThreads ? kMaxThreads : N / 4);
+    g.bins = (N + g.threads - 1) / g.threads;
+    g.logN = 0;
+    while ((1 << g.logN) < N) ++g.logN;
+    g.smem = sizeof(float2) * N + sizeof(float) * (N + K - 1) +
+             sizeof(float) * K;
+    return g;
+}
+
+template <int B>
+int launch(const Geometry& geo, dim3 grid, cudaStream_t stream,
+           const float* x, const float* y, long long y_row_stride,
+           int estride, int cplx, const float* taps, int K,
+           const float* means, const float* win, const float2* tw,
+           double* part, int N, int hop, int navr, int spg, int nfreq) {
+    cudaError_t e = cudaFuncSetAttribute(
+        welch_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(geo.smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    welch_kernel<B><<<grid, geo.threads, geo.smem, stream>>>(
+        x, y, y_row_stride, estride, cplx, taps, K, means, win, tw, part, N,
+        geo.logN, hop, navr, spg, nfreq);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared memory one block of welch_kernel needs.
+extern "C" long long pyfft_welch_smem_bytes(int nwins, int K) {
+    return static_cast<long long>(geometry(nwins, K).smem);
+}
+
+// x: reference signal, y: nch signals with row stride `y_row_stride`
+// floats; `estride` is 1 (float32 rows) or 2 (interleaved complex64, with
+// cplx = 1).  means: (nch+1) * (1 + cplx) float32, reference first.
+// win: (nwins,) float32.  tw: (nwins/2,) complex64.  part: (ngroups,
+// nch+1, 3, nfreq) float64 scratch.  out: (nch+1, 3, nfreq) float32.
+// Returns cudaGetLastError() after the second launch (or the first error).
+extern "C" int pyfft_welch(const float* x, const float* y,
+                           long long y_row_stride, int estride, int cplx,
+                           const float* taps, int K, const float* means,
+                           const float* win, const void* tw, double* part,
+                           float* out, int nch, int nwins, int hop, int navr,
+                           int ngroups, int nfreq, double norm,
+                           void* stream_ptr) {
+    const int N = nwins;
+    if (N < kMinN || N > kMaxN || (N & (N - 1)) || K < 1 || K > kFirMaxTaps ||
+        hop < 1 || hop > N || navr < 1 || ngroups < 1 || nch < 0 ||
+        nch + 1 > 65535 || nfreq < 1 || nfreq > N ||
+        estride != 1 + (cplx ? 1 : 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Geometry geo = geometry(N, K);
+    const int spg = (navr + ngroups - 1) / ngroups;
+    const dim3 grid(static_cast<unsigned>(ngroups),
+                    static_cast<unsigned>(nch + 1));
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const float2* twf = static_cast<const float2*>(tw);
+    int rc;
+    switch (geo.bins) {
+#define PYFFT_WELCH_CASE(BV)                                                 \
+    case BV:                                                                 \
+        rc = launch<BV>(geo, grid, stream, x, y, y_row_stride, estride, cplx, \
+                        taps, K, means, win, twf, part, N, hop, navr, spg,   \
+                        nfreq);                                              \
+        break;
+        PYFFT_WELCH_CASE(1)
+        PYFFT_WELCH_CASE(2)
+        PYFFT_WELCH_CASE(4)
+        PYFFT_WELCH_CASE(8)
+        PYFFT_WELCH_CASE(16)
+        PYFFT_WELCH_CASE(32)
+#undef PYFFT_WELCH_CASE
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (rc != 0) return rc;
+    const long long per_group = static_cast<long long>(nch + 1) * 3 * nfreq;
+    const int rt = 256;
+    welch_reduce<<<static_cast<unsigned>((per_group + rt - 1) / rt), rt, 0,
+                   stream>>>(part, out, ngroups, per_group, norm);
+    return static_cast<int>(cudaGetLastError());
+}

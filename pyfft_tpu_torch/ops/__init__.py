@@ -1,0 +1,17 @@
+"""Kernel layer of the port.
+
+- :mod:`pyfft_tpu_torch.ops.fir` — kernel A, the causal FIR
+  (``csrc/fir.cu``), and its plain version;
+- :mod:`pyfft_tpu_torch.ops.welch` — kernel B, fused FIR + detrend +
+  Welch cross-powers (``csrc/welch.cu``), and its plain version;
+- :mod:`pyfft_tpu_torch.ops._build` — builds and loads both with ``nvcc``
+  at first use on a CUDA tensor.
+"""
+from . import fir, welch
+from .fir import fir_pallas, PALLAS_FIR_MAX_TAPS
+from .welch import (welch_fir_pallas3, welch_fir_pallas_fused,
+                    welch_pallas3_twosided, pallas_welch2_applicable)
+
+__all__ = ["fir", "welch", "fir_pallas", "PALLAS_FIR_MAX_TAPS",
+           "welch_fir_pallas3", "welch_fir_pallas_fused",
+           "welch_pallas3_twosided", "pallas_welch2_applicable"]

@@ -1,0 +1,305 @@
+"""Fused FIR -> detrend -> Welch cross-powers: kernel B and its plain version.
+
+Counterpart of :mod:`pyfft_tpu.ops.pallas_welch3` (``welch_fir_pallas3``,
+``welch_pallas3_twosided``) and of the entry ``welch_fir_pallas_fused`` of
+:mod:`pyfft_tpu.ops.pallas_welch`.  Contract, as in the JAX package:
+``x (nt,)`` reference and ``y (nch, nt)`` channels; optional causal
+``taps`` (``np.convolve(sig, taps, 'full')[:nt]``) on every signal; the
+global mean of each *filtered* signal removed (``detrend_style`` 1) or not
+(0); Hann-or-any ``win`` on ``navr`` segments of ``nwins`` samples every
+``hop``; returns ``(Pxx, Pyy, Pxy_re, Pxy_im)`` summed over segments and
+scaled by ``norm``, with ``Pxy = Y conj(X)``.  The caller applies the
+one-sided bin doubling.
+
+- On CUDA tensors :func:`welch_cuda` launches kernel B (``csrc/welch.cu``):
+  the filtered signal never reaches device memory.  The per-signal means
+  of the filtered signals come from the unfiltered sums by the moment
+  identity ``sum(conv(x, t)[:nt]) = sum_k t_k (S - T_k)`` (``T_k`` the sum
+  of the last ``k`` samples), an O(C*K) float64 prologue in plain torch, as
+  the JAX package computes it in XLA outside its kernel.
+- On CPU tensors :func:`welch_plain` runs: ``fir_plain`` -> mean ->
+  frames -> window -> ``torch.fft.fft`` -> sums, in the input's dtype.
+
+``LAUNCHES`` counts the launches of kernel B.
+
+Domain of the kernel (re-derived for the card; the TPU's lane and VMEM
+limits do not apply): ``nwins`` a power of two in 16..16384, any hop in
+1..nwins, any ``nt >= (navr-1)*hop + nwins``, any ``nch >= 0`` (up to
+65534), up to 1024 taps, ``detrend_style`` in {0, 1}, real float32 or
+complex64 (two-sided) signals.  Its shared memory,
+``8*nwins + 4*(nwins+K-1) + 4*K`` bytes, is at most 205 KB there.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from . import _build
+from .fir import fir_plain, PALLAS_FIR_MAX_TAPS
+
+__all__ = ["welch_fir_pallas3", "welch_fir_pallas_fused",
+           "welch_pallas3_twosided", "pallas_welch2_applicable",
+           "welch_plain", "welch_cuda", "LAUNCHES"]
+
+_MIN_NWINS = 16
+_MAX_NWINS = 16384
+
+LAUNCHES = 0
+
+
+# --------------------------------------------------------------------------- #
+# Applicability (pure functions of shapes and flags)
+# --------------------------------------------------------------------------- #
+
+def _in_domain(nwins, noverlap, navr, taps=None, detrend_style=1):
+    nwins = int(nwins)
+    hop = nwins - int(noverlap)
+    ntaps = 1 if taps is None else int(np.size(taps))
+    return (detrend_style in (0, 1)
+            and _MIN_NWINS <= nwins <= _MAX_NWINS
+            and nwins & (nwins - 1) == 0
+            and 1 <= hop <= nwins
+            and int(navr) >= 1
+            and 1 <= ntaps <= PALLAS_FIR_MAX_TAPS)
+
+
+def pallas_welch2_applicable(nwins, noverlap, navr, nch=8, taps=None,
+                             detrend_style=1):
+    """Whether kernel B (:func:`welch_fir_pallas_fused`, and
+    :func:`welch_pallas3_twosided` for complex signals) takes this
+    configuration.  ``nch`` is accepted for the JAX signature; the kernel
+    takes any count."""
+    return _in_domain(nwins, noverlap, navr, taps, detrend_style)
+
+
+# --------------------------------------------------------------------------- #
+# Plain version
+# --------------------------------------------------------------------------- #
+
+def welch_plain(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
+                detrend_style=1):
+    """Plain PyTorch version of kernel B, in the inputs' dtype.
+
+    ``x (nt,)``, ``y (nch, nt)`` real or complex; returns the first
+    ``nfreq`` bins of ``(Pxx, Pyy, Pxy_re, Pxy_im)`` times ``norm``.
+    Segments go through ``torch.fft.fft`` in chunks that keep the framed
+    copy near 2**25 elements.
+    """
+    x = torch.as_tensor(x)
+    y = torch.as_tensor(y, device=x.device)
+    if y.dim() == 1:
+        y = y[None]
+    dtype = torch.promote_types(x.dtype, y.dtype)
+    sig = torch.cat([x[None].to(dtype), y.to(dtype)])
+    if taps is not None:
+        sig = fir_plain(sig, taps)
+    if detrend_style == 1:
+        sig = sig - sig.mean(dim=-1, keepdim=True)
+    real = sig.real.dtype if sig.is_complex() else sig.dtype
+    w = torch.as_tensor(np.asarray(win), dtype=real, device=sig.device)
+    frames = sig.unfold(-1, nwins, hop)                 # (C, nseg, nwins)
+    if frames.shape[1] < navr:
+        raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
+                         f"fit {sig.shape[-1]} samples")
+    C = sig.shape[0]
+    Pxx = torch.zeros(nfreq, dtype=real, device=sig.device)
+    Pyy = torch.zeros(C - 1, nfreq, dtype=real, device=sig.device)
+    Pxy = torch.zeros(C - 1, nfreq, dtype=torch.promote_types(
+        real, torch.complex64), device=sig.device)
+    chunk = max(1, (1 << 25) // (C * nwins))
+    for s0 in range(0, navr, chunk):
+        Z = torch.fft.fft(frames[:, s0:min(navr, s0 + chunk)] * w,
+                          dim=-1)[..., :nfreq]
+        X, Y = Z[0], Z[1:]
+        Pxx += (X.real ** 2 + X.imag ** 2).sum(0)
+        Pyy += (Y.real ** 2 + Y.imag ** 2).sum(1)
+        Pxy += (Y * X.conj()).sum(1)
+    return Pxx * norm, Pyy * norm, Pxy.real * norm, Pxy.imag * norm
+
+
+# --------------------------------------------------------------------------- #
+# Kernel B
+# --------------------------------------------------------------------------- #
+
+@lru_cache(maxsize=None)
+def _twiddles(nwins: int, device: str) -> torch.Tensor:
+    """``exp(-2 pi i m / nwins)``, m < nwins/2, from float64, as float32
+    (re, im) pairs."""
+    ang = -2.0 * np.pi * np.arange(nwins // 2) / nwins
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return torch.as_tensor(tw, device=device)
+
+
+_SUM_BLOCK = 4096
+
+
+def _row_sums(rows: torch.Tensor) -> torch.Tensor:
+    """float64 sums of the rows of ``rows (R, nt)``: float32 sums of
+    blocks of 4096 samples (a view of ``rows``), then float64 over the
+    blocks.  ``sum(dtype=float64)`` would cast a float64 copy of the whole
+    signal first."""
+    m = rows.shape[-1] - rows.shape[-1] % _SUM_BLOCK
+    blocks = rows[:, :m].reshape(rows.shape[0], m // _SUM_BLOCK,
+                                 _SUM_BLOCK).sum(-1)
+    return (blocks.to(torch.float64).sum(-1)
+            + rows[:, m:].to(torch.float64).sum(-1))
+
+
+def _moment_means(rows: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """float64 means of ``conv(row, taps, 'full')[:nt]`` for each row of
+    ``rows (R, nt)`` (any strides), from the unfiltered sums."""
+    nt = rows.shape[-1]
+    K = taps.size
+    S = _row_sums(rows)
+    t = torch.as_tensor(taps, dtype=torch.float64, device=rows.device)
+    if K == 1:
+        return S * t[0] / nt
+    tail = rows[:, max(0, nt - (K - 1)):].flip(-1).to(torch.float64)
+    tail = torch.nn.functional.pad(tail, (0, K - 1 - tail.shape[-1]))
+    T = torch.cat([torch.zeros_like(S)[:, None], torch.cumsum(tail, -1)], -1)
+    return ((S[:, None] - T) @ t) / nt
+
+
+def _means(x, y, taps, detrend_style, cplx):
+    """Kernel B's ``means`` operand: one value per signal (re, im pairs
+    for complex signals), reference first."""
+    n = (1 + y.shape[0]) * (2 if cplx else 1)
+    if detrend_style != 1:
+        return torch.zeros(n, dtype=torch.float32, device=x.device)
+    parts = []
+    for sig in (x[None], y):
+        if cplx:
+            parts.append(torch.stack([_moment_means(sig.real, taps),
+                                      _moment_means(sig.imag, taps)],
+                                     dim=-1).reshape(-1))
+        else:
+            parts.append(_moment_means(sig, taps))
+    return torch.cat(parts).to(torch.float32)
+
+
+def _groups(navr: int, ncols: int, device) -> int:
+    """Segment groups: about four blocks per SM over all columns."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(navr, -(-4 * sms // ncols)))
+
+
+def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
+               detrend_style=1):
+    """Launch kernel B.  ``x (nt,)`` contiguous and ``y (nch, nt)`` with
+    unit stride along time, both float32 (one-sided use) or both complex64
+    (two-sided), on one CUDA device.  Raises outside the kernel's domain."""
+    global LAUNCHES
+    if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+            and x.is_cuda and y.device == x.device):
+        raise ValueError("welch_cuda needs x and y on one CUDA device")
+    cplx = x.is_complex()
+    want = torch.complex64 if cplx else torch.float32
+    if x.dtype != want or y.dtype != want:
+        raise ValueError(f"welch_cuda takes float32 or complex64 pairs, got "
+                         f"{x.dtype} and {y.dtype}")
+    if x.dim() != 1 or not x.is_contiguous() or y.dim() != 2 \
+            or y.shape[1] != x.shape[0] or (y.shape[0] and y.stride(1) != 1):
+        raise ValueError(
+            f"welch_cuda takes x (nt,) contiguous and y (nch, nt) with unit "
+            f"time stride, got {tuple(x.shape)} and {tuple(y.shape)} "
+            f"strides {tuple(y.stride())}")
+    nt = x.shape[0]
+    nch = y.shape[0]
+    noverlap = nwins - hop
+    if not _in_domain(nwins, noverlap, navr, taps, detrend_style) \
+            or nch + 1 > 65535 or not 1 <= nfreq <= nwins:
+        raise ValueError(
+            f"welch kernel: unsupported geometry nwins={nwins} hop={hop} "
+            f"navr={navr} nch={nch} nfreq={nfreq} detrend={detrend_style}")
+    if (navr - 1) * hop + nwins > nt:
+        raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
+                         f"fit {nt} samples")
+    taps64 = (np.ones(1) if taps is None
+              else np.asarray(taps, dtype=np.float64).ravel())
+    dev = x.device
+    means = _means(x, y, taps64, detrend_style, cplx)
+    xf = torch.view_as_real(x) if cplx else x
+    yf = torch.view_as_real(y) if cplx else y
+    w = torch.as_tensor(np.asarray(win), dtype=torch.float32,
+                        device=dev).contiguous()
+    if w.shape != (nwins,):
+        raise ValueError(f"window of shape {tuple(w.shape)}, need ({nwins},)")
+    t = torch.as_tensor(taps64, dtype=torch.float32, device=dev)
+    tw = _twiddles(int(nwins), str(dev))
+    ngroups = _groups(navr, nch + 1, dev)
+    part = torch.empty((ngroups, nch + 1, 3, nfreq), dtype=torch.float64,
+                       device=dev)
+    out = torch.empty((nch + 1, 3, nfreq), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pyfft_welch(
+            xf.data_ptr(), yf.data_ptr() if nch else xf.data_ptr(),
+            yf.stride(0) if nch else 0, 2 if cplx else 1, int(cplx),
+            t.data_ptr(), int(t.numel()), means.data_ptr(), w.data_ptr(),
+            tw.data_ptr(), part.data_ptr(), out.data_ptr(), nch, int(nwins),
+            int(hop), int(navr), ngroups, int(nfreq), float(norm), stream)
+        _build.check(rc, "welch kernel")
+    LAUNCHES += 1
+    return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]
+
+
+# --------------------------------------------------------------------------- #
+# Entries (JAX package names)
+# --------------------------------------------------------------------------- #
+
+def _signals(x, y, dtype):
+    x = torch.as_tensor(x)
+    y = torch.as_tensor(y, device=x.device)
+    if y.dim() == 1:
+        y = y[None]
+    x = x.to(dtype).contiguous()
+    y = y.to(dtype)
+    if y.shape[0] and y.stride(-1) != 1:
+        y = y.contiguous()
+    return x, y
+
+
+def _run(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend_style):
+    kw = dict(navr=int(navr), nwins=int(nwins), hop=int(hop), taps=taps,
+              detrend_style=int(detrend_style))
+    if x.is_cuda:
+        return welch_cuda(x, y, win, nfreq, norm, **kw)
+    return welch_plain(x, y, win, nfreq, norm, **kw)
+
+
+def welch_fir_pallas3(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
+                      taps=None, detrend_style=1):
+    """One-sided Welch cross-powers of real signals with an optional fused
+    FIR (module docstring).  Signals are cast to float32, as the JAX kernel
+    casts them; returns ``(Pxx (nfreq,), Pyy (nch, nfreq), Pxy_re,
+    Pxy_im)``.  Raises ``ValueError`` outside the kernel's domain."""
+    if not _in_domain(nwins, noverlap, navr, taps, detrend_style):
+        raise ValueError(
+            f"welch kernel: unsupported geometry nwins={nwins} "
+            f"noverlap={noverlap} navr={navr} detrend={detrend_style}")
+    x, y = _signals(x, y, torch.float32)
+    return _run(x, y, win, int(nfreq), norm, navr=navr, nwins=nwins,
+                hop=nwins - noverlap, taps=taps, detrend_style=detrend_style)
+
+
+# The JAX package's v2 entry, which runs the v3 kernel wherever it applies;
+# kernel B covers both domains.
+welch_fir_pallas_fused = welch_fir_pallas3
+
+
+def welch_pallas3_twosided(x, y, win, norm, *, navr, nwins, noverlap,
+                           taps=None, detrend_style=1):
+    """Two-sided Welch cross-powers of complex signals (the Doppler IQ
+    configuration): ``x (nt,)``, ``y (nchz, nt)`` cast to complex64; returns
+    ``(Pxx (nwins,), Pyy (nchz, nwins), Pxy_re, Pxy_im)`` in natural DFT
+    bin order (callers apply ``fftshift``), scaled by ``norm``."""
+    if not _in_domain(nwins, noverlap, navr, taps, detrend_style):
+        raise ValueError(
+            f"welch two-sided kernel: unsupported geometry nwins={nwins} "
+            f"noverlap={noverlap} navr={navr} detrend={detrend_style}")
+    x, y = _signals(x, y, torch.complex64)
+    return _run(x, y, win, int(nwins), norm, navr=navr, nwins=nwins,
+                hop=nwins - noverlap, taps=taps, detrend_style=detrend_style)
