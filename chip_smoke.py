@@ -3,15 +3,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pyfft_tpu_torch/csrc`` with ``nvcc``,
-holds each against its plain PyTorch version at the shapes of the main path,
-then drives the main path (the fused FIR -> Welch cross-spectral chain) at
-the size of bench configurations 0 and 5: 8 channels of 2**25 float32
-samples at fs = 1 MHz with a 129-tap band-pass and nwins = 2048, and 8
-channels of 2**24 samples with nwins = 4096 through ``fft_pwelch``.
+holds each against its plain PyTorch version at the shapes of the main
+paths, then drives the two main paths:
+
+- the fused FIR -> Welch cross-spectral chain at the size of bench
+  configurations 0 and 5: 8 channels of 2**25 float32 samples at fs = 1 MHz
+  with a 129-tap band-pass and nwins = 2048, and 8 channels of 2**24
+  samples with nwins = 4096 through ``fft_pwelch`` (phases 4-5);
+- the STFT path through the ``fftanal`` class at the size of bench
+  configuration 2, a 2**24-sample chirp with nwins = 2048 and 50% overlap,
+  and a two-signal ``fftanal`` with nwins = 4096 (phases 7-8).
 
 Every phase prints one JSON line.  Then come the kernels' line
-(``{"kernels": [...]}``, launches counted over the main-path phases only),
-the card's ``nvidia-smi`` name and power limit, and last
+(``{"kernels": [...]}``, launches counted over the main-path phases only:
+each path runs with the counts set to 0 just before it and read just
+after), the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then non-zero and no ``ok`` line is printed.  There is no CPU fallback:
 without a CUDA device the script exits with code 2.
@@ -34,6 +40,7 @@ NCH = 8
 SEED = 0
 FIR_TOL = 1e-5      # kernel A: max |kernel - plain| / max |plain|
 WELCH_TOL = 2e-5    # kernel B: the same, per output
+STFT_TOL = 2e-5     # kernel C: the same, per case
 
 
 def emit(phase, **fields):
@@ -85,6 +92,59 @@ def signals(nt, dev):
     return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
 
 
+def chirp(nt):
+    """bench.py's config-2 chirp: f_inst from 1 kHz to 200 kHz over nt
+    samples at FS, as float32 (NumPy), with f_inst."""
+    import numpy as np
+    f_inst = 1e3 + (200e3 - 1e3) * np.arange(nt) / nt
+    return (np.sin(2 * np.pi * np.cumsum(f_inst) / FS)
+            .astype(np.float32)), f_inst
+
+
+def stft_split(x, tvec, plan, win):
+    """Wall time of ``stft_segments``' kernel route on ``x`` (NumPy),
+    split into its steps: host gates, host -> device copy, kernel C with
+    its means prologue, the float64 device epilogue, device -> host copy
+    and the host epilogue.  Returns (seconds by step, (tt, X, pseg))."""
+    import numpy as np
+    import torch
+    from pyfft_tpu_torch import segmentation as seg
+    from pyfft_tpu_torch.fftanal import (_pallas_epilogue, _pallas_spectra,
+                                         _uniform)
+    from pyfft_tpu_torch.ops.stft import stft_applicable
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    tv = np.asarray(tvec, dtype=np.float64)
+    dt = (tv[-1] - tv[0]) / (len(tv) - 1)
+    s1, s2 = seg.get_s1(win), seg.get_s2(win)
+    # fftanal's __Fs__, so that the scaling is bit-identical
+    enbw = seg.get_enbw((len(tv) - 1) / (tv[-1] - tv[0]), s1, s2)
+    check(stft_applicable(plan.nwins, plan.noverlap) and _uniform(tv, dt),
+          "kernel route gates")
+    t1 = time.perf_counter()
+    xt = torch.as_tensor(x, device="cuda")
+    sync()
+    t2 = time.perf_counter()
+    X = _pallas_spectra(xt, win, plan, 1)
+    sync()
+    t3 = time.perf_counter()
+    Xs, pseg = _pallas_epilogue(xt, X, win, dt, s1, s2, enbw, plan,
+                                onesided=True, detrend_style=1)
+    sync()
+    t4 = time.perf_counter()
+    Xh, ph = Xs.cpu().numpy(), pseg.cpu().numpy()
+    t5 = time.perf_counter()
+    starts = plan.starts()
+    cs = np.concatenate([[0.0], np.cumsum(tv)])
+    tt = (cs[starts + plan.nwins] - cs[starts]) / plan.nwins
+    t6 = time.perf_counter()
+    steps = {"host_gates": t1 - t0, "h2d": t2 - t1, "kernel": t3 - t2,
+             "device_epilogue": t4 - t3, "d2h": t5 - t4,
+             "host_epilogue": t6 - t5, "total": t6 - t0}
+    return steps, (tt, Xh, ph)
+
+
 def main():
     if not (HERE / "pyfft_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: pyfft_tpu_torch/ is not beside this script",
@@ -101,7 +161,7 @@ def main():
 
     import pyfft_tpu_torch as pt
     from pyfft_tpu_torch import segmentation as seg
-    from pyfft_tpu_torch.ops import _build, fir, welch
+    from pyfft_tpu_torch.ops import _build, fir, stft, welch
     check(Path(pt.__file__).resolve().parent == HERE / "pyfft_tpu_torch",
           f"pyfft_tpu_torch imported from {pt.__file__}")
     check("jax" not in sys.modules and "pyfft_tpu" not in sys.modules,
@@ -258,16 +318,150 @@ def main():
           "non-finite fft_pwelch outputs")
 
     launches = {"fir": fir.LAUNCHES, "welch": welch.LAUNCHES}
+
+    # ---- phase 6: kernel C against its plain version --------------------- #
+    nt2 = 1 << 24
+    chirp2, f_inst = chirp(nt2)
+    nt_b = 1 << 22
+    rng = np.random.default_rng(SEED + 2)
+    tb = np.arange(nt_b) / FS
+    iq = (np.exp(2j * np.pi * 97e3 * tb)
+          + 0.3 * (rng.standard_normal(nt_b)
+                   + 1j * rng.standard_normal(nt_b))).astype(np.complex64)
+    cases = (("a_config2_chirp", torch.from_numpy(chirp2).to(dev), None,
+              2048, 1024),
+             ("b_iq_complex64", torch.from_numpy(iq).to(dev), None, 4096,
+              1024),
+             ("c_reference_and_8_channels", x0[:nt_b], y0[:, :nt_b], 512,
+              256))
+    for name, x, y, nwins, hop in cases:
+        nt = x.shape[0]
+        navr = (nt - nwins) // hop + 1
+        win = np.hanning(nwins + 1)[:-1]
+        kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=1)
+        got = stft.stft_cuda(x, y, win, 1.0, **kw)
+        ref = stft.stft_plain(x, y, win, 1.0, **kw)
+        err, scale = rel_err(got, ref)
+        max_abs = err * scale
+        del got, ref
+        ms = time_ms(lambda: stft.stft_cuda(x, y, win, 1.0, **kw))
+        plain_ms = time_ms(lambda: stft.stft_plain(x, y, win, 1.0, **kw))
+        nsig = 1 + (0 if y is None else y.shape[0])
+        emit("stft_vs_plain", case=name, nsig=nsig, nt=nt, nwins=nwins,
+             hop=hop, navr=navr, dtype=str(x.dtype), rel_err=err,
+             max_abs_err=max_abs, tol=STFT_TOL, ms=ms, plain_ms=plain_ms,
+             out_mb=8 * nsig * navr * nwins / 1e6)
+        check(err <= STFT_TOL, f"kernel C {name}: rel err {err} > {STFT_TOL}")
+        if name.startswith("a_"):
+            kernels["stft"] = dict(max_abs_err=max_abs, ms=ms,
+                                   plain_ms=plain_ms)
+    del cases, iq, x, y
+    torch.cuda.empty_cache()
+
+    # ---- second main path: counts from here on --------------------------- #
+    fir.LAUNCHES = 0
+    welch.LAUNCHES = 0
+    stft.LAUNCHES = 0
+
+    # ---- phase 7: config 2 through fftanal ------------------------------- #
+    t2 = np.arange(nt2) / FS
+    kw7 = dict(tper=2048.5 / FS, windowoverlap=0.5, plotit=False,
+               verbose=False)
+    t0 = time.perf_counter()
+    a7 = pt.fftanal(t2, chirp2, **kw7)
+    a7.pwelch()
+    wall_kernel = time.perf_counter() - t0
+    check(a7.nwins == 2048 and a7.Navr == 16383,
+          f"nwins {a7.nwins}, Navr {a7.Navr}")
+    check(stft.LAUNCHES == 1, f"fftanal.pwelch launched kernel C "
+          f"{stft.LAUNCHES} times")
+    ipk = np.argmax(np.abs(a7.Xseg), axis=1)
+    f_at = 1e3 + (200e3 - 1e3) * (a7.tseg * FS) / nt2
+    bins = np.abs(a7.freq[ipk] - f_at) / (FS / a7.nwins)
+    check(np.all(bins <= 2), f"chirp peak off f_inst by {bins.max()} bins")
+    t0 = time.perf_counter()
+    b7 = pt.fftanal(t2, chirp2, fft_backend="xla", **kw7)
+    b7.pwelch()
+    wall_xla = time.perf_counter() - t0
+    check(stft.LAUNCHES == 1, "the 'xla' backend launched kernel C")
+    errs7 = {k: rel_err(getattr(a7, k), getattr(b7, k))[0]
+             for k in ("Xseg", "Xpow", "tseg", "Pxx")}
+    del b7
+    s7 = pt.stft(t2, chirp2, tper=2048.5 / FS, windowoverlap=0.5,
+                 verbose=False)
+    check(stft.LAUNCHES == 2, "spectrogram.stft did not launch kernel C")
+    check(np.array_equal(s7.Xseg, a7.Xseg), "pt.stft gave another Xseg")
+    del s7
+    emit("main_config2", nt=nt2, nwins=a7.nwins, navr=a7.Navr,
+         peak_off_bins_max=float(bins.max()),
+         wall_s_pwelch_kernel=wall_kernel, wall_s_pwelch_xla=wall_xla,
+         rel_err_vs_xla=errs7, tol=STFT_TOL)
+    for k, e in errs7.items():
+        check(e <= STFT_TOL, f"config 2 {k}: kernel vs xla {e}")
+    seg7 = (a7._plan(), a7.win, a7.tseg, a7.Xseg, a7.Xpow)
+    del a7
+
+    # ---- phase 8: two signals through fftanal ---------------------------- #
+    x8 = x0[:nt2].cpu().numpy()
+    y8 = y0[0, :nt2].cpu().numpy()
+    kw8 = dict(tper=4096.5 / FS, windowoverlap=0.5, plotit=False,
+               verbose=False)
+    before = stft.LAUNCHES
+    res = {}
+    for backend in (None, "xla"):
+        t0 = time.perf_counter()
+        o = pt.fftanal(t2, x8, y8, fft_backend=backend, **kw8)
+        o.pwelch()
+        o.crosscorr()
+        o.convert2amplitudes()
+        res[backend] = (o, time.perf_counter() - t0)
+        if backend is None:
+            check(stft.LAUNCHES == before + 2, f"two-signal pwelch launched "
+                  f"kernel C {stft.LAUNCHES - before} times")
+    a8, b8 = res[None][0], res["xla"][0]
+    check(stft.LAUNCHES == before + 2, "the 'xla' backend launched kernel C")
+    ik = int(np.argmin(np.abs(a8.freq - 97e3)))
+    coh = float(np.abs(a8.Cxy[ik]))
+    phi = float(a8.phi_xy[ik])
+    errs8 = {k: rel_err(getattr(a8, k), getattr(b8, k))[0]
+             for k in ("Pxx", "Pyy", "Pxy", "Cxy")}
+    finite = all(np.all(np.isfinite(np.asarray(getattr(a8, k))))
+                 for k in ("Pxx", "Pyy", "Pxy", "Cxy", "phi_xy", "Rxy",
+                           "corrcoef", "Lxx", "Lyy", "Lxy"))
+    emit("main_two_signal", nt=nt2, nwins=a8.nwins, navr=a8.Navr,
+         Cxy_97k=coh, phi_xy_97k=phi, wall_s_kernel=res[None][1],
+         wall_s_xla=res["xla"][1], rel_err_vs_xla=errs8, tol=STFT_TOL)
+    check(coh > 0.9 and abs(phi) < 0.1, f"|Cxy| {coh}, phi {phi} at 97 kHz")
+    check(finite, "non-finite fftanal outputs")
+    for k, e in errs8.items():
+        check(e <= STFT_TOL, f"two-signal {k}: kernel vs xla {e}")
+    launches["stft"] = stft.LAUNCHES
+    check(fir.LAUNCHES == 0 and welch.LAUNCHES == 0,
+          "the STFT path launched kernel A or B")
+    del res, a8, b8, o
+
+    # ---- config 2's stft_segments, step by step (after the counts) ------- #
+    plan7, win7, tt7, X7, p7 = seg7
+    split, (tt_s, X_s, p_s) = stft_split(chirp2, t2, plan7, win7)
+    check(np.array_equal(X_s, X7) and np.array_equal(p_s, p7)
+          and np.array_equal(tt_s, tt7),
+          "the timed steps differ from stft_segments")
+    emit("config2_stft_segments_split", seconds=split,
+         x_host_mb=X_s.nbytes / 1e6)
+
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
     source = {"fir": ("pyfft_tpu_torch/csrc/fir.cu",
                       "pyfft_tpu/ops/pallas_fir.py:150"),
               "welch": ("pyfft_tpu_torch/csrc/welch.cu",
-                        "pyfft_tpu/ops/pallas_welch3.py:455")}
+                        "pyfft_tpu/ops/pallas_welch3.py:455"),
+              "stft": ("pyfft_tpu_torch/csrc/stft.cu",
+                       "pyfft_tpu/ops/pallas_welch3.py:1139")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source[name][0],
          "replaces": source[name][1], "launches": launches[name],
-         **kernels[name]} for name in ("fir", "welch")]}), flush=True)
+         **kernels[name]} for name in ("fir", "welch", "stft")]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

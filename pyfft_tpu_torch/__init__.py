@@ -2,10 +2,11 @@
 
 A second package beside the JAX one, under the same public names and
 return contracts.  It imports ``torch`` (with numpy, and scipy where the JAX
-package uses it) and never ``jax`` or ``pyfft_tpu``.  This first slice is
+package uses it) and never ``jax`` or ``pyfft_tpu``.  The first slice is
 the headline chain: causal FIR -> global-mean detrend -> Hann segments ->
 DFT -> averaged auto-/cross-powers -> ``fft_pwelch``'s coherence, phase and
-``fftinfosc``.
+``fftinfosc``.  The second is the STFT path: the ``fftanal`` class,
+``stft_segments``, ``spectrogram`` and the ``integrate`` toolbox.
 
 Map from the JAX package:
 
@@ -14,15 +15,25 @@ Map from the JAX package:
 =================================  ======================================
 ``utils/structure.py``             ``utils/structure.py`` (no pytree)
 ``utils/detrend.py``               ``utils/detrend.py`` (tensors)
+``utils/interp.py``                ``utils/interp.py`` (NumPy)
 ``windows.py``                     ``windows.py`` (copy)
 ``plotting.py``                    ``plotting.py`` (copy)
 ``segmentation.py``                ``segmentation.py`` (framing in torch)
 ``ops/pallas_fir.py``              ``ops/fir.py`` + ``csrc/fir.cu``
 ``ops/pallas_welch3.py`` and the   ``ops/welch.py`` + ``csrc/welch.cu``
 entries of ``ops/pallas_welch.py``
+``ops/pallas_welch3.py`` (STFT     ``ops/stft.py`` + ``csrc/stft.cu``
+entries)
+(the FFT of kernels B and C)       ``csrc/fft.cuh``
+``ops/transform.py``               ``ops/transform.py`` (``torch.fft``)
 (kernel build and load)            ``ops/_build.py``
-``filters.py`` (FIR part)          ``filters.py``
+``filters.py`` (FIR part,          ``filters.py``
+``upsample``)
 ``spectral.py``                    ``spectral.py`` (no mesh tier yet)
+``fftanal.py``                     ``fftanal.py``
+``spectrogram.py``                 ``spectrogram.py``
+``integrate.py``                   ``integrate.py`` (host NumPy)
+``examples.py``                    ``examples.py`` (no ``test_fft_deriv``)
 ``config.py``                      ``config.py`` (+ ``from_reference``)
 =================================  ======================================
 
@@ -40,6 +51,7 @@ from .windows import get_window
 from . import segmentation
 from . import ops
 from . import filters
+from .filters import upsample
 from .spectral import (
     fft_pwelch,
     fftinfosc,
@@ -48,6 +60,20 @@ from .spectral import (
     welch_filtered_cross_spectra,
     csd_oracle,
     resolve_fft_backend,
+)
+from .fftanal import fftanal, stft_segments
+from . import spectrogram
+from .spectrogram import stft, specgram
+from . import integrate
+from .integrate import (
+    integratespectra,
+    getNpeaks,
+    varcoh,
+    varphi,
+    monticoh,
+    montiphi,
+    mean_angle,
+    unwrap_tol,
 )
 from . import config
 from .config import SpectralConfig, welch_psd
@@ -60,8 +86,23 @@ from .utils.detrend import (
 __all__ = [
     "windows",
     "get_window",
+    "fftanal",
+    "stft_segments",
     "ops",
+    "spectrogram",
+    "stft",
+    "specgram",
     "filters",
+    "upsample",
+    "integrate",
+    "integratespectra",
+    "getNpeaks",
+    "varcoh",
+    "varphi",
+    "monticoh",
+    "montiphi",
+    "mean_angle",
+    "unwrap_tol",
     "config",
     "SpectralConfig",
     "welch_psd",

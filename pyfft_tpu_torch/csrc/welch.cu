@@ -23,79 +23,20 @@
 // stages N+K-1 raw samples in shared memory, filters them with fir_point
 // (fir.cuh), subtracts the mean and windows them into a complex buffer in
 // bit-reversed order, and runs an in-place radix-2 FFT with twiddles from a
-// float64 host table.  It keeps its bins of X in registers while the
+// float64 host table (load_segment and fft_radix2, fft.cuh, shared with
+// kernel C).  It keeps its bins of X in registers while the
 // buffer is reused for Y_c.  Sums over segments are held in float64
 // registers; each block writes per-group partials, which welch_reduce sums
 // in a fixed order and scales by `norm`.
 #include <cuda_runtime.h>
 
-#include "fir.cuh"
+#include "fft.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kMinN = 16;
 constexpr int kMaxN = 16384;
-
-// Stage component `comp` of the raw samples [start-(K-1), start-(K-1)+span)
-// of one signal into `raw` (zeros before the signal starts).
-__device__ __forceinline__ void stage(float* raw, const float* sig,
-                                      int estride, int comp, long long start,
-                                      int span, int K) {
-    for (int j = threadIdx.x; j < span; j += blockDim.x) {
-        const long long t = start - (K - 1) + j;
-        raw[j] = t >= 0 ? __ldg(sig + t * estride + comp) : 0.f;
-    }
-}
-
-// buf[bitrev(n)] = (fir(sig) - mean) * win for one segment.
-__device__ void load_segment(float2* buf, float* raw, const float* taps,
-                             int K, const float* sig, int estride, int cplx,
-                             float mean_re, float mean_im,
-                             const float* __restrict__ win, long long start,
-                             int N, int logN) {
-    const int span = N + K - 1;
-    stage(raw, sig, estride, 0, start, span, K);
-    __syncthreads();
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-        const float v = (fir_point(raw + n, taps, K) - mean_re) * __ldg(win + n);
-        buf[__brev(n) >> (32 - logN)] = make_float2(v, 0.f);
-    }
-    __syncthreads();
-    if (cplx) {
-        stage(raw, sig, estride, 1, start, span, K);
-        __syncthreads();
-        for (int n = threadIdx.x; n < N; n += blockDim.x) {
-            const float v =
-                (fir_point(raw + n, taps, K) - mean_im) * __ldg(win + n);
-            buf[__brev(n) >> (32 - logN)].y = v;
-        }
-        __syncthreads();
-    }
-}
-
-// In-place radix-2 decimation-in-time FFT of a bit-reversed buffer.
-// tw[m] = exp(-2 pi i m / N), m < N/2.
-__device__ void fft_radix2(float2* buf, const float2* __restrict__ tw, int N,
-                           int logN) {
-    for (int s = 1; s <= logN; ++s) {
-        const int half = 1 << (s - 1);
-        const int tstep = N >> s;
-        for (int i = threadIdx.x; i < (N >> 1); i += blockDim.x) {
-            const int p = i & (half - 1);
-            const int a = ((i - p) << 1) + p;
-            const int b = a + half;
-            const float2 w = __ldg(tw + p * tstep);
-            const float2 u = buf[a];
-            const float2 v = buf[b];
-            const float tr = v.x * w.x - v.y * w.y;
-            const float ti = v.x * w.y + v.y * w.x;
-            buf[a] = make_float2(u.x + tr, u.y + ti);
-            buf[b] = make_float2(u.x - tr, u.y - ti);
-        }
-        __syncthreads();
-    }
-}
 
 // B = bins per thread; bin k of thread t is t + b*blockDim.x, b < B.
 template <int B>

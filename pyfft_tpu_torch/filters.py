@@ -7,9 +7,12 @@ Counterpart of the FIR part of :mod:`pyfft_tpu.filters`:
   over blocks and channels on the input's device, in its dtype;
 - :func:`fir_filter` — causal filtering ``np.convolve(x, taps,
   'full')[:nt]`` with backend ``'os'`` (overlap-save, default) or
-  ``'pallas'`` (kernel A, :func:`pyfft_tpu_torch.ops.fir.fir_pallas`).
+  ``'pallas'`` (kernel A, :func:`pyfft_tpu_torch.ops.fir.fir_pallas`);
+- :func:`upsample` — linear-interpolation upsampling, host NumPy (what
+  ``fftanal.resample`` needs).
 
-Butterworth design, IIR filtering and resampling are not ported yet.
+Butterworth design, IIR filtering, downsampling and the rest of the
+resampling are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from . import segmentation as seg
+from .utils.interp import interp
 
-__all__ = ["firwin", "oaconvolve", "fir_filter"]
+__all__ = ["firwin", "oaconvolve", "fir_filter", "upsample"]
 
 
 # --------------------------------------------------------------------------- #
@@ -139,3 +143,15 @@ def fir_filter(x, taps, axis=-1, backend=None):
         y = oaconvolve(x, taps, mode="full")[..., :x.shape[-1]]
     return torch.movedim(y, -1, axis)
 
+
+# --------------------------------------------------------------------------- #
+# Resampling (reference filters.py:20-34)
+# --------------------------------------------------------------------------- #
+
+def upsample(u_t, Fs, Fs_new, plotit=False):
+    """Linear-interpolation upsampling (reference ``upsample``, :20-34)."""
+    u_t = np.asarray(u_t)
+    nt = len(u_t)
+    tt = np.arange(0, nt, 1) / Fs
+    ti = np.arange(tt[0], tt[-1], 1 / Fs_new)
+    return interp(tt, u_t, ei=None, xo=ti)

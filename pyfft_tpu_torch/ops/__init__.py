@@ -4,14 +4,20 @@
   (``csrc/fir.cu``), and its plain version;
 - :mod:`pyfft_tpu_torch.ops.welch` — kernel B, fused FIR + detrend +
   Welch cross-powers (``csrc/welch.cu``), and its plain version;
-- :mod:`pyfft_tpu_torch.ops._build` — builds and loads both with ``nvcc``
-  at first use on a CUDA tensor.
+- :mod:`pyfft_tpu_torch.ops.stft` — kernel C, the per-segment STFT after
+  mean and window (``csrc/stft.cu``), and its plain version;
+- :mod:`pyfft_tpu_torch.ops.transform` — NumPy-in, NumPy-out ``torch.fft``
+  helpers;
+- :mod:`pyfft_tpu_torch.ops._build` — builds and loads the kernels with
+  ``nvcc`` at first use on a CUDA tensor.
 """
-from . import fir, welch
+from . import fir, welch, stft, transform
 from .fir import fir_pallas, PALLAS_FIR_MAX_TAPS
 from .welch import (welch_fir_pallas3, welch_fir_pallas_fused,
                     welch_pallas3_twosided, pallas_welch2_applicable)
+from .stft import stft_pallas3, stft_applicable
 
-__all__ = ["fir", "welch", "fir_pallas", "PALLAS_FIR_MAX_TAPS",
+__all__ = ["fir", "welch", "stft", "transform", "fir_pallas",
+           "PALLAS_FIR_MAX_TAPS", "stft_pallas3", "stft_applicable",
            "welch_fir_pallas3", "welch_fir_pallas_fused",
            "welch_pallas3_twosided", "pallas_welch2_applicable"]

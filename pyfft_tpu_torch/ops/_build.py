@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels (``pyfft_tpu_torch/csrc``).
 
-The sources have a plain C interface.  On first use :func:`library` runs
+The sources have a plain C interface.  On first use :func:`library`
+compiles every ``csrc/*.cu`` at once, one ``nvcc`` process per source,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas=-v -o libpyfft_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c -o <name>.o csrc/<name>.cu
 
-into ``pyfft_tpu_torch/_build/<hash>/``, where ``<hash>`` covers the sources
-and the flags, and loads the result with :mod:`ctypes`.  The compiler's
+then links the objects with ``nvcc -shared -o libpyfft_kernels.so``, into
+``pyfft_tpu_torch/_build/<hash>/``, where ``<hash>`` covers the sources
+and the flags, and loads the result with :mod:`ctypes`.  The compilers'
 output (with ptxas' register and shared-memory report) is kept beside the
 library as ``build.log``.  Nothing here runs at import time.
 """
@@ -27,7 +29,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libpyfft_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +42,8 @@ _SIGNATURES = {
     "pyfft_welch_smem_bytes": ([_I, _I], _LL),
     "pyfft_welch": ([_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                      _I, _I, _I, _I, _D, _P], _I),
+    "pyfft_stft": ([_P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                    ctypes.c_float, _P], _I),
 }
 
 _lib = None
@@ -79,17 +83,35 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(SRC_DIR.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    jobs = []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
+    if not failed:
+        tmp = out_dir / f".{LIB_NAME}.{tag}"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
     _build_seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    (out_dir / "build.log").write_text("".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 

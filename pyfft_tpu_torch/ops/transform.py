@@ -1,0 +1,44 @@
+"""Host-convenience transforms, NumPy in and NumPy out (counterpart of
+:mod:`pyfft_tpu.ops.transform`).
+
+Small analysis modules need plain FFTs that run on whatever device is
+present.  These run ``torch.fft`` on the port's device rule
+(:func:`pyfft_tpu_torch.spectral._device`: the tensor's device, else cuda
+when present, else the CPU) in the input's precision and return NumPy
+arrays.  The JAX package's real-pair matmul branch exists because its TPU
+backend has no complex dtype; it has no counterpart here.  Heavy
+pipelines (Welch, STFT, FIR) have their own paths and do not go through
+here.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..spectral import _device, _np, _tensor
+
+__all__ = ["fft", "ifft", "rfft", "irfft"]
+
+
+def _run(op, x, n, axis):
+    t = _tensor(x, _device(None, x))
+    return _np(op(t, n=n, dim=axis))
+
+
+def fft(x, n=None, axis=-1):
+    """Forward DFT; NumPy complex out."""
+    return _run(torch.fft.fft, x, n, axis)
+
+
+def ifft(x, n=None, axis=-1):
+    """Inverse DFT (1/N-normalized); NumPy complex out."""
+    return _run(torch.fft.ifft, x, n, axis)
+
+
+def rfft(x, n=None, axis=-1):
+    """Real-input DFT; NumPy complex out."""
+    return _run(torch.fft.rfft, x, n, axis)
+
+
+def irfft(x, n, axis=-1):
+    """Inverse real DFT; NumPy real out."""
+    return _run(torch.fft.irfft, x, n, axis)

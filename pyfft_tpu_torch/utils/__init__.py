@@ -1,7 +1,15 @@
-"""Utility layer of the port: result containers and detrending."""
+"""Utility layer of the port: result containers, detrending, small numerics."""
 
 from .structure import Struct
 from .detrend import detrend_none, detrend_mean, detrend_linear, detrend_func
+from .interp import (
+    interp,
+    trapz_var,
+    sliding_window_1d,
+    reshapech,
+    rect,
+    delta,
+)
 
 __all__ = [
     "Struct",
@@ -9,4 +17,10 @@ __all__ = [
     "detrend_mean",
     "detrend_linear",
     "detrend_func",
+    "interp",
+    "trapz_var",
+    "sliding_window_1d",
+    "reshapech",
+    "rect",
+    "delta",
 ]

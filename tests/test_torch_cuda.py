@@ -1,4 +1,4 @@
-"""Kernels A and B on a CUDA card against their plain versions.
+"""Kernels A, B and C on a CUDA card against their plain versions.
 
 Runs only where there is a card (each test skips elsewhere, deciding in
 the ``cuda_device`` fixture).  It imports neither JAX nor the JAX package,
@@ -13,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+import pyfft_tpu_torch as pt
+from pyfft_tpu_torch import segmentation as pseg
 from pyfft_tpu_torch.ops import fir as pfir
+from pyfft_tpu_torch.ops import stft as pst
 from pyfft_tpu_torch.ops import welch as pw
 
 
@@ -80,3 +83,89 @@ def test_welch_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins, hop,
         if r.numel():
             err = ((g.double() - r).abs().max() / r.abs().max()).item()
             assert err <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsig,nt,nwins,hop,cplx,detrend", [
+    (1, 1 << 15, 2048, 1024, False, 1),
+    (9, 5000, 16, 7, False, 0),
+    (9, 1 << 16, 2048, 2048, True, 1),
+    (1, (1 << 16) + 3, 16384, 1024, True, 0),
+    (1, 1 << 17, 16384, 16384, False, 1),
+    (9, 3001, 16, 16, True, 1),
+    (1, 777, 16, 7, True, 0),
+])
+def test_stft_kernel_matches_plain_on_card(cuda_device, nsig, nt, nwins, hop,
+                                           cplx, detrend):
+    """Kernel C vs its plain version in float64 on the card: max |diff| /
+    max |ref| <= 2e-5 (float32 radix-2 FFT)."""
+    rng = np.random.default_rng(nt + nsig)
+    dt = torch.complex64 if cplx else torch.float32
+    x = rng.standard_normal(nt) + 0.3
+    y = rng.standard_normal((nsig - 1, nt)) - 0.1
+    if cplx:
+        x = x + 1j * (rng.standard_normal(nt) + 0.2)
+        y = y + 1j * rng.standard_normal((nsig - 1, nt))
+    xt = torch.as_tensor(x, dtype=dt, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=dt, device=cuda_device)
+    navr = (nt - nwins) // hop + 1
+    win = np.hanning(nwins + 1)[:-1]
+    kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=detrend)
+    before = pst.LAUNCHES
+    got = pst.stft_cuda(xt, yt if nsig > 1 else None, win, 0.5, **kw)
+    torch.cuda.synchronize()
+    assert pst.LAUNCHES == before + 1
+    assert got.dtype == torch.complex64
+    assert tuple(got.shape) == (nsig, navr, nwins)
+    wide = torch.complex128 if cplx else torch.float64
+    ref = pst.stft_plain(xt.to(wide), yt.to(wide), win, 0.5, **kw)
+    err = ((got.to(torch.complex128) - ref).abs().max()
+           / ref.abs().max()).item()
+    assert err <= 2e-5
+
+
+@pytest.mark.cuda
+def test_stft_kernel_raises_outside_its_domain_on_card(cuda_device):
+    x = torch.ones(4096, device=cuda_device)
+    win = np.ones(512)
+    with pytest.raises(ValueError, match="float32 or complex64"):
+        pst.stft_cuda(x.double(), None, win, 1.0, navr=3, nwins=512, hop=256)
+    with pytest.raises(ValueError, match="geometry"):
+        pst.stft_cuda(x, None, np.ones(500), 1.0, navr=3, nwins=500,
+                      hop=250)
+    with pytest.raises(ValueError, match="do not fit"):
+        pst.stft_cuda(x, None, win, 1.0, navr=30, nwins=512, hop=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cplx", [False, True])
+def test_fftanal_default_takes_kernel_c_on_card(cuda_device, cplx):
+    """The default backend on the card takes kernel C once per signal and
+    agrees with the torch.fft core ('xla') on the same float32 input."""
+    rng = np.random.default_rng(4)
+    nt, fs = 1 << 16, 1e6
+    t = np.arange(nt) / fs
+    x = np.sin(2 * np.pi * 97e3 * t) + 0.3 * rng.standard_normal(nt)
+    y = np.roll(x, 3) + 0.1 * rng.standard_normal(nt)
+    if cplx:
+        x = x + 1j * np.roll(x, 11)
+        y = y + 1j * np.roll(y, 11)
+    dt = np.complex64 if cplx else np.float32
+    x, y = x.astype(dt), y.astype(dt)
+    kw = dict(tper=1024.5 / fs, windowoverlap=0.5, plotit=False,
+              verbose=False)
+    before = pst.LAUNCHES
+    a = pt.fftanal(t, x, y, **kw)
+    a.pwelch()
+    assert pst.LAUNCHES == before + 2
+    b = pt.fftanal(t, x, y, fft_backend="xla", **kw)
+    b.pwelch()
+    assert pst.LAUNCHES == before + 2
+    for f in ("Xseg", "Yseg", "Xpow", "tseg", "Pxx", "Pyy", "Pxy"):
+        u, v = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        assert np.abs(u - v).max() <= 2e-5 * np.abs(v).max(), f
+    plan = pseg.plan_segments(nt, nwins=1024, windowoverlap=0.5)
+    out = pt.stft_segments(torch.as_tensor(x, device=cuda_device), t,
+                           a.win, plan, fs, onesided=not cplx)
+    assert pst.LAUNCHES == before + 3
+    assert np.abs(out[2] - a.Xseg).max() <= 2e-5 * np.abs(a.Xseg).max()

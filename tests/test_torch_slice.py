@@ -35,6 +35,9 @@ REPO = Path(__file__).resolve().parent.parent
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, pyfft_tpu_torch, pyfft_tpu_torch.ops.welch, "
             "pyfft_tpu_torch.ops.fir, pyfft_tpu_torch.ops._build, "
+            "pyfft_tpu_torch.ops.stft, pyfft_tpu_torch.ops.transform, "
+            "pyfft_tpu_torch.fftanal, pyfft_tpu_torch.spectrogram, "
+            "pyfft_tpu_torch.integrate, pyfft_tpu_torch.examples, "
             "pyfft_tpu_torch.plotting\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pyfft_tpu' or "
