@@ -12,7 +12,13 @@ paths, then drives the two main paths:
   samples with nwins = 4096 through ``fft_pwelch`` (phases 4-5);
 - the STFT path through the ``fftanal`` class at the size of bench
   configuration 2, a 2**24-sample chirp with nwins = 2048 and 50% overlap,
-  and a two-signal ``fftanal`` with nwins = 4096 (phases 7-8).
+  and a two-signal ``fftanal`` with nwins = 4096 (phases 7-8);
+- the Hilbert demodulation path through ``hilbert_mod.envelope_phase`` at
+  the size of bench configuration 4, a 2**24-sample AM signal at fs = 1 MHz
+  (phase 10), after kernel D against its plain version (phase 9); then a
+  light drive of the analysis tier on the card (``downsample_efficient``
+  of 8 channels of 2**22 samples, the blocked IIR; the synthetic Doppler
+  chain through ``fftanal``), held against the CPU route.
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
@@ -41,6 +47,11 @@ SEED = 0
 FIR_TOL = 1e-5      # kernel A: max |kernel - plain| / max |plain|
 WELCH_TOL = 2e-5    # kernel B: the same, per output
 STFT_TOL = 2e-5     # kernel C: the same, per case
+HILB_TOL = 1e-5     # kernel D: the same, on its rows and on the analytic signal
+PHASE_TOL = 1e-4    # config 4: wrapped phase (rad) where env > 1e-2 max
+ENV_TOL = 1e-3      # config 4: |envelope - (1 + 0.5 sin)| away from the edges
+IIR_TOL = 1e-12     # blocked IIR: card vs CPU, float64, relative to max
+DOPPLER_TOL = 1e-4  # Doppler chain: kernel C (float32) vs CPU (float64)
 
 
 def emit(phase, **fields):
@@ -145,6 +156,51 @@ def stft_split(x, tvec, plan, win):
     return steps, (tt, Xh, ph)
 
 
+def am_signal(nt):
+    """bench.py's config-4 AM signal (``bench.py:331-332``), built on a
+    float64 time base and cast to float32 (a float32 time base is coarser
+    than 1 us past 8 s).  Returns (am, envelope, t)."""
+    import numpy as np
+    t = np.arange(nt) / FS
+    env = 1 + 0.5 * np.sin(2 * np.pi * 500 * t)
+    return (env * np.sin(2 * np.pi * 50e3 * t)).astype(np.float32), env, t
+
+
+def hilbert_split(am):
+    """Wall time of ``envelope_phase``'s kernel route on ``am`` (NumPy),
+    split into its steps: host -> device copy, outer DFT, kernel D, inverse
+    outer DFT, envelope and phase, device -> host copy.  Returns (seconds
+    by step, (env, phase))."""
+    import torch
+    from pyfft_tpu_torch.ops import hilbert as hk
+    sync = torch.cuda.synchronize
+    nt = am.shape[0]
+    n1, M = hk.row_split(nt)
+    sync()
+    t0 = time.perf_counter()
+    x = torch.as_tensor(am, device="cuda")
+    sync()
+    t1 = time.perf_counter()
+    A = torch.fft.fft(x.reshape(n1, M), dim=0).contiguous()
+    sync()
+    t2 = time.perf_counter()
+    B = hk.hilbert_cuda(A)
+    sync()
+    t3 = time.perf_counter()
+    z = torch.fft.ifft(B, dim=0).reshape(nt)
+    sync()
+    t4 = time.perf_counter()
+    env, ph = z.abs(), z.angle()
+    sync()
+    t5 = time.perf_counter()
+    env_h, ph_h = env.cpu().numpy(), ph.cpu().numpy()
+    t6 = time.perf_counter()
+    steps = {"h2d": t1 - t0, "outer_dft": t2 - t1, "kernel": t3 - t2,
+             "inverse_outer_dft": t4 - t3, "envelope_phase": t5 - t4,
+             "d2h": t6 - t5, "total": t6 - t0}
+    return steps, (env_h, ph_h)
+
+
 def main():
     if not (HERE / "pyfft_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: pyfft_tpu_torch/ is not beside this script",
@@ -161,7 +217,9 @@ def main():
 
     import pyfft_tpu_torch as pt
     from pyfft_tpu_torch import segmentation as seg
+    from pyfft_tpu_torch.hilbert import _analytic_factored
     from pyfft_tpu_torch.ops import _build, fir, stft, welch
+    from pyfft_tpu_torch.ops import hilbert as hk
     check(Path(pt.__file__).resolve().parent == HERE / "pyfft_tpu_torch",
           f"pyfft_tpu_torch imported from {pt.__file__}")
     check("jax" not in sys.modules and "pyfft_tpu" not in sys.modules,
@@ -449,6 +507,157 @@ def main():
     emit("config2_stft_segments_split", seconds=split,
          x_host_mb=X_s.nbytes / 1e6)
 
+    del seg7, X7, X_s, p7, p_s
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: kernel D against its plain version --------------------- #
+    nt4 = 1 << 24
+    am4, env4_true, _ = am_signal(nt4)
+    rng = np.random.default_rng(SEED + 3)
+    occupancy = {M: hk.blocks_per_sm(M) for M in (16384, 8192)}
+    # config 4 (the main path's split), an odd n1 at full size, a
+    # non-power-of-two length, a one-row case, and config 4 split in rows
+    # of 16384 (the other candidate for the default split)
+    cases = (("a_config4", am4, None),
+             ("b_odd_n1", rng.standard_normal(2047 << 13), None),
+             ("c_9x2^20", rng.standard_normal(9 << 20), None),
+             ("d_small", rng.standard_normal(1 << 12), None),
+             ("e_config4_rows_16384", am4, hk.ROW_MAX))
+    for name, sig, max_row in cases:
+        x = torch.as_tensor(np.asarray(sig, dtype=np.float32), device=dev)
+        nt = x.shape[0]
+        split = hk.row_split(nt, max_row or hk.ROW_DEFAULT)
+        A = torch.fft.fft(x.reshape(split), dim=0).contiguous()
+        got = hk.hilbert_cuda(A)
+        ref = hk.hilbert_plain(A)
+        err_rows, scale = rel_err(got, ref)
+        max_abs = err_rows * scale
+        del got, ref
+        err_z, _ = rel_err(_analytic_factored(x, split),
+                           _analytic_factored(x, split, hk.hilbert_plain))
+        ms = time_ms(lambda: hk.hilbert_cuda(A))
+        plain_ms = time_ms(lambda: hk.hilbert_plain(A))
+        # the device chain: outer DFT, kernel D, inverse outer DFT
+        chain_ms = time_ms(lambda: _analytic_factored(x, split))
+        emit("hilbert_vs_plain", case=name, nt=nt, n1=split[0], M=split[1],
+             rel_err_rows=err_rows, rel_err_analytic=err_z,
+             max_abs_err=max_abs, tol=HILB_TOL, ms=ms, plain_ms=plain_ms,
+             chain_ms=chain_ms, blocks_per_sm=occupancy.get(split[1]),
+             gb_moved=16 * nt / 1e9)
+        check(err_rows <= HILB_TOL and err_z <= HILB_TOL,
+              f"kernel D {name}: rel err {err_rows} (rows), {err_z} "
+              f"(analytic signal) > {HILB_TOL}")
+        if name.startswith("a_"):
+            kernels["hilbert"] = dict(max_abs_err=max_abs, ms=ms,
+                                      plain_ms=plain_ms)
+        del A, x
+    del cases, sig
+    torch.cuda.empty_cache()
+
+    # ---- third main path: counts from here on ---------------------------- #
+    fir.LAUNCHES = 0
+    welch.LAUNCHES = 0
+    stft.LAUNCHES = 0
+    hk.LAUNCHES = 0
+
+    # ---- phase 10: config 4 through hilbert_mod.envelope_phase ---------- #
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env4, ph4 = pt.hilbert_mod.envelope_phase(am4)
+    wall4 = time.perf_counter() - t0
+    check(hk.LAUNCHES == 1, f"envelope_phase launched kernel D "
+          f"{hk.LAUNCHES} times")
+    launches["hilbert"] = hk.LAUNCHES
+    check(fir.LAUNCHES == welch.LAUNCHES == stft.LAUNCHES == 0,
+          "the Hilbert path launched kernel A, B or C")
+    check(env4.shape == ph4.shape == (nt4,) and env4.dtype == np.float32
+          and np.all(np.isfinite(env4)) and np.all(np.isfinite(ph4)),
+          "envelope/phase shape, dtype or finiteness")
+    core = slice(nt4 // 256, nt4 - nt4 // 256)
+    env_dev = float(np.abs(env4[core] - env4_true[core]).max())
+    finst = np.diff(np.unwrap(ph4.astype(np.float64))) * FS / (2 * np.pi)
+    f_med = float(np.median(finst))
+    # the plain route on the same device tensor: the chain with the plain
+    # middle (launches nothing)
+    xd = torch.as_tensor(am4, device=dev)
+    zp = _analytic_factored(xd, rows=hk.hilbert_plain)
+    env_p, ph_p = zp.abs().cpu().numpy(), zp.angle().cpu().numpy()
+    del xd, zp
+    env_err = float(np.abs(env4 - env_p).max() / np.abs(env_p).max())
+    keep = env_p > 1e-2 * env_p.max()
+    dphi = np.angle(np.exp(1j * (ph4.astype(np.float64) - ph_p)))
+    ph_err = float(np.abs(dphi[keep]).max())
+    emit("main_config4", nt=nt4, split=list(hk.row_split(nt4)),
+         wall_s=wall4, envelope_max_dev_core=env_dev, env_tol=ENV_TOL,
+         median_f_inst_hz=f_med, rel_err_env_vs_plain=env_err,
+         phase_err_vs_plain_rad=ph_err, tol=HILB_TOL, phase_tol=PHASE_TOL)
+    check(env_dev <= ENV_TOL, f"envelope off 1 + 0.5 sin by {env_dev}")
+    check(abs(f_med - 50e3) <= 1.0, f"median f_inst {f_med} Hz")
+    check(env_err <= HILB_TOL, f"envelope vs plain route {env_err}")
+    check(ph_err <= PHASE_TOL, f"phase vs plain route {ph_err} rad")
+
+    # ---- config 4's envelope_phase, step by step (after the counts) ------ #
+    split4, (env_s, ph_s) = hilbert_split(am4)
+    check(np.array_equal(env_s, env4) and np.array_equal(ph_s, ph4),
+          "the timed steps differ from envelope_phase")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.hilbert_mod.envelope_phase(am4)
+        walls.append(time.perf_counter() - t0)
+    emit("config4_envelope_phase_split", seconds=split4,
+         in_mb=am4.nbytes / 1e6, out_mb=(env_s.nbytes + ph_s.nbytes) / 1e6,
+         wall_s_first_call=wall4, wall_s_next_calls=walls)
+    del env4, ph4, env_p, ph_p, env_s, ph_s, dphi, keep, finst
+    torch.cuda.empty_cache()
+
+    # ---- the analysis tier on the card, against the CPU route ------------ #
+    nt_a = 1 << 22
+    rec = (np.sin(2 * np.pi * 3e3 * np.arange(nt_a) / FS)[:, None]
+           + 0.3 * np.random.default_rng(SEED + 4).standard_normal(
+               (nt_a, NCH)))
+    wall_ds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ds = pt.downsample_efficient(rec, FS, 1e5, device=dev)
+        wall_ds.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ds0 = pt.downsample_efficient(rec[:, 0], FS, 1e5, device="cpu")
+    wall_ds_cpu = time.perf_counter() - t0
+    ds_err = float(np.abs(ds[:, 0] - ds0).max() / np.abs(ds0).max())
+    check(ds.shape == (len(ds0), NCH) and np.all(np.isfinite(ds)),
+          f"downsample_efficient shape {ds.shape}")
+    check(ds_err <= IIR_TOL, f"downsample_efficient card vs CPU {ds_err}")
+    del rec, ds
+    before = stft.LAUNCHES
+    t0 = time.perf_counter()
+    fd = pt.doppler.test_DopplerSignal(device=dev)
+    wall_dop = time.perf_counter() - t0
+    dop_launches = stft.LAUNCHES - before
+    t0 = time.perf_counter()
+    fd0 = pt.doppler.test_DopplerSignal(device="cpu")
+    wall_dop_cpu = time.perf_counter() - t0
+    # fftanal takes kernel C only inside its geometry; the chain's default
+    # segments (33 samples) are outside it, so torch.fft runs
+    want_c = int(stft.stft_applicable(fd.nwins, fd._plan().noverlap))
+    check(dop_launches == want_c, f"the Doppler chain launched kernel C "
+          f"{dop_launches} times, its gate says {want_c}")
+    ipk = int(np.argmax(np.abs(np.asarray(fd.Lxx))))
+    dop_err = rel_err(np.asarray(fd.Pxx), np.asarray(fd0.Pxx))[0]
+    emit("analysis_tier", downsample_efficient=dict(
+        nch=NCH, nt=nt_a, fs_new=1e5, wall_s_card=wall_ds,
+        wall_s_cpu_one_channel=wall_ds_cpu, rel_err_vs_cpu=ds_err,
+        tol=IIR_TOL), doppler=dict(
+        navr=fd.Navr, nwins=fd.nwins, kernel_c_launches=dop_launches,
+        peak_hz=float(fd.freq[ipk]), wall_s_card=wall_dop,
+        wall_s_cpu=wall_dop_cpu, rel_err_Pxx_vs_cpu=dop_err,
+        tol=DOPPLER_TOL))
+    check(abs(fd.freq[ipk] - 10e3) <= 2 * abs(fd.freq[1] - fd.freq[0]),
+          f"Doppler line at {fd.freq[ipk]} Hz")
+    check(dop_err <= DOPPLER_TOL, f"Doppler Pxx card vs CPU {dop_err}")
+    del fd, fd0
+
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
     source = {"fir": ("pyfft_tpu_torch/csrc/fir.cu",
@@ -456,11 +665,13 @@ def main():
               "welch": ("pyfft_tpu_torch/csrc/welch.cu",
                         "pyfft_tpu/ops/pallas_welch3.py:455"),
               "stft": ("pyfft_tpu_torch/csrc/stft.cu",
-                       "pyfft_tpu/ops/pallas_welch3.py:1139")}
+                       "pyfft_tpu/ops/pallas_welch3.py:1139"),
+              "hilbert": ("pyfft_tpu_torch/csrc/hilbert.cu",
+                          "pyfft_tpu/hilbert.py:223")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source[name][0],
          "replaces": source[name][1], "launches": launches[name],
-         **kernels[name]} for name in ("fir", "welch", "stft")]}),
+         **kernels[name]} for name in ("fir", "welch", "stft", "hilbert")]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

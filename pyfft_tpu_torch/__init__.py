@@ -6,7 +6,11 @@ package uses it) and never ``jax`` or ``pyfft_tpu``.  The first slice is
 the headline chain: causal FIR -> global-mean detrend -> Hann segments ->
 DFT -> averaged auto-/cross-powers -> ``fft_pwelch``'s coherence, phase and
 ``fftinfosc``.  The second is the STFT path: the ``fftanal`` class,
-``stft_segments``, ``spectrogram`` and the ``integrate`` toolbox.
+``stft_segments``, ``spectrogram`` and the ``integrate`` toolbox.  The
+third is the Hilbert demodulation path (``hilbert``, ``envelope_phase``)
+and the analysis tier around it: the rest of ``filters``, ``notch``,
+``deriv``, ``laplace``, ``ccf``, ``doppler``, ``pca``, ``dft``,
+``crosscheck`` and the ``fft_analysis`` facade.
 
 Map from the JAX package:
 
@@ -24,16 +28,23 @@ Map from the JAX package:
 entries of ``ops/pallas_welch.py``
 ``ops/pallas_welch3.py`` (STFT     ``ops/stft.py`` + ``csrc/stft.cu``
 entries)
-(the FFT of kernels B and C)       ``csrc/fft.cuh``
+``hilbert.py`` (slab kernel)       ``ops/hilbert.py`` + ``csrc/hilbert.cu``
+(the FFT of kernels B, C and D)    ``csrc/fft.cuh``
 ``ops/transform.py``               ``ops/transform.py`` (``torch.fft``)
 (kernel build and load)            ``ops/_build.py``
-``filters.py`` (FIR part,          ``filters.py``
-``upsample``)
+``filters.py``                     ``filters.py`` (blocked IIR)
 ``spectral.py``                    ``spectral.py`` (no mesh tier yet)
 ``fftanal.py``                     ``fftanal.py``
 ``spectrogram.py``                 ``spectrogram.py``
 ``integrate.py``                   ``integrate.py`` (host NumPy)
-``examples.py``                    ``examples.py`` (no ``test_fft_deriv``)
+``hilbert.py``                     ``hilbert.py`` (no mesh tier yet)
+``notch.py``, ``deriv.py``,        the same names
+``laplace.py``, ``ccf.py``,
+``doppler.py``, ``pca.py``,
+``crosscheck.py``
+``dft.py``                         ``dft.py`` (copy)
+``fft_analysis.py``                ``fft_analysis.py`` (facade)
+``examples.py``                    ``examples.py``
 ``config.py``                      ``config.py`` (+ ``from_reference``)
 =================================  ======================================
 
@@ -64,6 +75,20 @@ from .spectral import (
 from .fftanal import fftanal, stft_segments
 from . import spectrogram
 from .spectrogram import stft, specgram
+from . import hilbert as hilbert_mod
+from .hilbert import hilbert, hilbert_1d
+from . import laplace as laplace_mod
+from .laplace import laplace, laplace_1d
+from .filters import (
+    butter_lowpass_filter,
+    butter_bandpass,
+    downsample,
+    downsample_efficient,
+)
+from . import notch
+from .notch import iirnotch, iirpeak
+from .deriv import fft_deriv
+from . import fft_analysis as fft
 from . import integrate
 from .integrate import (
     integratespectra,
@@ -75,8 +100,17 @@ from .integrate import (
     mean_angle,
     unwrap_tol,
 )
+from . import ccf as ccf_mod
+from .ccf import ccf, ccf_sh, align_signals
+from . import doppler
+from .doppler import cog, cogspec
+from . import pca
+from .pca import PCA, basic_pca
 from . import config
 from .config import SpectralConfig, welch_psd
+from . import dft as dft_mod
+from . import crosscheck
+from .crosscheck import coh, coh2, psd, csd, fft_pmlab
 from .utils.detrend import (
     detrend_none,
     detrend_mean,
@@ -92,8 +126,21 @@ __all__ = [
     "spectrogram",
     "stft",
     "specgram",
+    "hilbert",
+    "hilbert_1d",
+    "laplace",
+    "laplace_1d",
     "filters",
+    "notch",
+    "iirnotch",
+    "iirpeak",
+    "fft_deriv",
+    "butter_lowpass_filter",
+    "butter_bandpass",
     "upsample",
+    "downsample",
+    "downsample_efficient",
+    "fft",
     "integrate",
     "integratespectra",
     "getNpeaks",
@@ -103,9 +150,24 @@ __all__ = [
     "montiphi",
     "mean_angle",
     "unwrap_tol",
+    "ccf",
+    "ccf_sh",
+    "align_signals",
+    "doppler",
+    "cog",
+    "cogspec",
+    "pca",
+    "PCA",
+    "basic_pca",
     "config",
     "SpectralConfig",
     "welch_psd",
+    "crosscheck",
+    "coh",
+    "coh2",
+    "psd",
+    "csd",
+    "fft_pmlab",
     "fft_pwelch",
     "fftinfosc",
     "Cxy_Cxy2",

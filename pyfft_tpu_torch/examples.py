@@ -14,13 +14,11 @@ equivalents, same signals and parameterizations:
   correlation function -> turbulence-like spectrum)
 - :func:`test` / :func:`testFFTanal` <- reference ``:3101-3109`` /
   ``:2817-2881`` (homebrew vs mlab-oracle cross-validation overplot)
+- :func:`test_fft_deriv`   <- reference ``:1591-1656`` (the five analytic
+  spectral-derivative cases)
 
 Plotting only happens under ``plotit=True`` (lazy matplotlib import);
 every function returns its result arrays so CI can assert on them.
-
-Not ported yet: ``test_fft_deriv`` (reference ``:1591-1656``), which needs
-``deriv.py`` and through it ``filters.downsample_efficient``; it waits for
-the filters/analysis slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,7 +28,7 @@ from .spectral import fft_pwelch
 from .fftanal import fftanal
 
 __all__ = ["test_fftpwelch", "test_fftanal", "create_turb_spectra",
-           "testFFTanal", "test"]
+           "testFFTanal", "test", "test_fft_deriv"]
 
 
 def _square(phase):
@@ -147,6 +145,53 @@ def test(plotit=False):
     return testFFTanal(plotit=plotit)
 
 
+def test_fft_deriv(modified=True, plotit=False):
+    """The 5 analytic spectral-derivative cases (reference :1591-1656):
+    box, Gaussian, line, aperiodic sine, periodic sine.  Returns a dict of
+    ``case -> (x, y, dy_analytic, dy_fft)`` for assertion/inspection."""
+    from .deriv import fft_deriv
+    from .utils.interp import rect, delta
+
+    out = {}
+    N, L = int(2e3), 13.0
+    dx = L / N
+    for ii in range(5):
+        xx = dx * np.arange(N)
+        if ii == 0:
+            yy = rect(2.0 * xx / L - 0.75)
+            dy = (delta(2.0 * xx / L - 0.75 + 0.5)
+                  - delta(2.0 * xx / L - 0.75 - 0.5))
+            name = "box"
+        elif ii == 1:
+            yy = np.exp(-0.5 * (xx / L) ** 2 / 0.25 ** 2)
+            dy = (-(xx / L) * (1.0 / L) / 0.25 ** 2) * yy
+            name = "gaussian"
+        elif ii == 2:
+            yy = np.linspace(-1.2, 11.3, num=len(xx), endpoint=True)
+            dy = ((yy[-1] - yy[0]) / (xx[-1] - xx[0])) * np.ones_like(yy)
+            name = "line"
+        elif ii == 3:
+            yy = np.sin(xx)
+            dy = np.cos(xx)
+            name = "sine_aperiodic"
+        else:
+            xx = 6.0 * np.pi * xx / L
+            yy = np.sin(xx)[:-1]
+            dy = np.cos(xx)[:-1]
+            xx = xx[:-1]
+            name = "sine_periodic"
+        dydt, xo = fft_deriv(yy, xx, modified=modified)
+        out[name] = (xx, yy, dy, np.asarray(dydt))
+        if plotit:  # pragma: no cover
+            import matplotlib.pyplot as plt
+            plt.figure(f"fft_deriv {name}")
+            plt.plot(xx, yy, "-", label="function")
+            plt.plot(xx, dy, "-", label="analytical der")
+            plt.plot(np.asarray(xo), np.asarray(dydt), "*", label="fft der")
+            plt.legend(loc="lower left")
+    return out
+
+
 if __name__ == "__main__":  # pragma: no cover - manual smoke entry
     print("test_fftpwelch ...")
     test_fftpwelch()
@@ -156,4 +201,6 @@ if __name__ == "__main__":  # pragma: no cover - manual smoke entry
     create_turb_spectra()
     print("testFFTanal (homebrew vs oracle) ...")
     testFFTanal()
+    print("test_fft_deriv ...")
+    test_fft_deriv()
     print("all examples ran")

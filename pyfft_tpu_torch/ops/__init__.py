@@ -6,18 +6,21 @@
   Welch cross-powers (``csrc/welch.cu``), and its plain version;
 - :mod:`pyfft_tpu_torch.ops.stft` — kernel C, the per-segment STFT after
   mean and window (``csrc/stft.cu``), and its plain version;
+- :mod:`pyfft_tpu_torch.ops.hilbert` — kernel D, the rows' section of the
+  factored analytic-signal transform (``csrc/hilbert.cu``), and its plain
+  version;
 - :mod:`pyfft_tpu_torch.ops.transform` — NumPy-in, NumPy-out ``torch.fft``
   helpers;
 - :mod:`pyfft_tpu_torch.ops._build` — builds and loads the kernels with
   ``nvcc`` at first use on a CUDA tensor.
 """
-from . import fir, welch, stft, transform
+from . import fir, welch, stft, hilbert, transform
 from .fir import fir_pallas, PALLAS_FIR_MAX_TAPS
 from .welch import (welch_fir_pallas3, welch_fir_pallas_fused,
                     welch_pallas3_twosided, pallas_welch2_applicable)
 from .stft import stft_pallas3, stft_applicable
 
-__all__ = ["fir", "welch", "stft", "transform", "fir_pallas",
+__all__ = ["fir", "welch", "stft", "hilbert", "transform", "fir_pallas",
            "PALLAS_FIR_MAX_TAPS", "stft_pallas3", "stft_applicable",
            "welch_fir_pallas3", "welch_fir_pallas_fused",
            "welch_pallas3_twosided", "pallas_welch2_applicable"]

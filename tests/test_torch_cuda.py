@@ -1,4 +1,4 @@
-"""Kernels A, B and C on a CUDA card against their plain versions.
+"""Kernels A, B, C and D on a CUDA card against their plain versions.
 
 Runs only where there is a card (each test skips elsewhere, deciding in
 the ``cuda_device`` fixture).  It imports neither JAX nor the JAX package,
@@ -15,7 +15,9 @@ import torch
 
 import pyfft_tpu_torch as pt
 from pyfft_tpu_torch import segmentation as pseg
+from pyfft_tpu_torch.hilbert import _analytic_factored, envelope_phase
 from pyfft_tpu_torch.ops import fir as pfir
+from pyfft_tpu_torch.ops import hilbert as phk
 from pyfft_tpu_torch.ops import stft as pst
 from pyfft_tpu_torch.ops import welch as pw
 
@@ -169,3 +171,91 @@ def test_fftanal_default_takes_kernel_c_on_card(cuda_device, cplx):
                            a.win, plan, fs, onesided=not cplx)
     assert pst.LAUNCHES == before + 3
     assert np.abs(out[2] - a.Xseg).max() <= 2e-5 * np.abs(a.Xseg).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft,max_row", [
+    (1 << 12, phk.ROW_MAX), (9 << 10, phk.ROW_MAX), (1 << 20, phk.ROW_MAX),
+    (1 << 12, 16), (9 << 10, 64), (3 << 16, phk.ROW_DEFAULT),
+    (1 << 20, phk.ROW_DEFAULT)])
+def test_hilbert_kernel_matches_plain_on_card(cuda_device, nfft, max_row):
+    """Kernel D vs its plain version in complex128 on the card, on the
+    outer spectrum's rows of a random float32 signal: max |diff| / max |ref|
+    <= 1e-5 (float32 radix-2 FFTs of up to 16384 points, float32
+    twiddles from float64).  Then the whole chain against a complex128
+    torch.fft analytic signal, same bound."""
+    rng = np.random.default_rng(nfft + max_row)
+    x = torch.as_tensor(rng.standard_normal(nfft), dtype=torch.float32,
+                        device=cuda_device)
+    n1, M = phk.row_split(nfft, max_row)
+    A = torch.fft.fft(x.reshape(n1, M), dim=0).contiguous()
+    before = phk.LAUNCHES
+    got = phk.hilbert_cuda(A)
+    torch.cuda.synchronize()
+    assert phk.LAUNCHES == before + 1
+    assert got.dtype == torch.complex64 and got.shape == A.shape
+    ref = phk.hilbert_plain(A.to(torch.complex128))
+    err = ((got.to(torch.complex128) - ref).abs().max()
+           / ref.abs().max()).item()
+    assert err <= 1e-5
+    z = _analytic_factored(x, split=(n1, M))
+    xd = x.double()
+    h = torch.zeros(nfft, dtype=torch.float64, device=cuda_device)
+    h[0] = h[nfft // 2] = 1.0
+    h[1:nfft // 2] = 2.0
+    zref = torch.fft.ifft(torch.fft.fft(xd) * h)
+    err = ((z.to(torch.complex128) - zref).abs().max()
+           / zref.abs().max()).item()
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+def test_hilbert_kernel_raises_outside_its_domain_on_card(cuda_device):
+    A = torch.zeros(4, 16, dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="complex64"):
+        phk.hilbert_cuda(A.to(torch.complex128))
+    with pytest.raises(ValueError, match="unsupported"):
+        phk.hilbert_cuda(torch.zeros(4, 24, dtype=torch.complex64,
+                                     device=cuda_device))
+    with pytest.raises(ValueError, match="unsupported"):
+        phk.hilbert_cuda(torch.zeros(1, 1 << 15, dtype=torch.complex64,
+                                     device=cuda_device))
+    assert phk.blocks_per_sm(16384) >= 1
+
+
+@pytest.mark.cuda
+def test_envelope_phase_takes_kernel_d_once_on_card(cuda_device):
+    """A 1-D float32 signal with a row split takes kernel D once and agrees
+    with the CPU route (the same chain with the plain version); an N-D
+    signal takes torch.fft and launches nothing."""
+    nt, fs = 1 << 20, 1e6
+    t = np.arange(nt) / fs
+    am = ((1 + 0.5 * np.sin(2 * np.pi * 500 * t))
+          * np.sin(2 * np.pi * 50e3 * t)).astype(np.float32)
+    before = phk.LAUNCHES
+    env, ph = envelope_phase(torch.as_tensor(am, device=cuda_device))
+    assert phk.LAUNCHES == before + 1
+    env0, ph0 = envelope_phase(am, device="cpu")
+    assert np.abs(env - env0).max() <= 2e-5 * np.abs(env0).max()
+    keep = env0 > 1e-2 * env0.max()
+    dphi = np.angle(np.exp(1j * (ph.astype(np.float64) - ph0)))
+    assert np.abs(dphi[keep]).max() <= 1e-4
+    envs, _ = envelope_phase(torch.as_tensor(np.stack([am, am]),
+                                             device=cuda_device))
+    assert phk.LAUNCHES == before + 1
+    assert np.abs(envs[0] - env0).max() <= 2e-5 * np.abs(env0).max()
+
+
+@pytest.mark.cuda
+def test_blocked_iir_on_card_matches_cpu(cuda_device):
+    """The blocked lfilter/filtfilt in float64 on the card against the same
+    code on the CPU: rtol 1e-12 (another matmul order only)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 1 << 16))
+    b, a = pt.filters.butter(4, 0.05)
+    got = pt.filters.filtfilt(b, a, torch.as_tensor(x, device=cuda_device))
+    want = pt.filters.filtfilt(b, a, x, device="cpu")
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    got = pt.filters.downsample_efficient(x.T, 1e6, 5e4, device=cuda_device)
+    want = pt.filters.downsample_efficient(x.T, 1e6, 5e4, device="cpu")
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()

@@ -469,7 +469,9 @@ def test_examples_match_jax():
     home, orac = pex.testFFTanal()
     assert abs(home[0][np.argmax(np.abs(home[2]))]
                - orac[0][np.argmax(np.abs(orac[2]))]) < 2 * home[0][1]
-    assert not hasattr(pex, "test_fft_deriv")
+    # ported with deriv.py; held against the JAX example in
+    # tests/test_torch_analysis.py
+    assert set(jex.__all__) <= set(pex.__all__)
 
 
 def test_config2_chirp_slice_as_a_whole():

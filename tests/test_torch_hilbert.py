@@ -1,0 +1,199 @@
+"""The Hilbert slice of pyfft_tpu_torch against the JAX package on the CPU.
+
+- ``hilbert`` / ``hilbert_1d`` in float64 against the JAX functions in x64
+  (tests/conftest.py): atol 1e-10, the FFT libraries' rounding only.
+- The factored chain (outer ``torch.fft``, kernel D's plain version in the
+  middle, inverse outer ``torch.fft``) on float32 input against JAX
+  ``_analytic_factored`` and ``_analytic_factored_slab`` (interpret mode)
+  at 'highest' precision: atol 3e-6 * max|z|, the JAX test's own bound
+  between its two float32 chains (tests/test_hilbert.py).
+- ``envelope_phase`` (float32 on both sides) against JAX ``envelope_phase``:
+  envelope rtol 1e-5; phase, wrapped, within 1e-4 rad where the envelope
+  is above 1e-2 of its maximum.
+- On the CPU nothing launches kernel D (``ops.hilbert.LAUNCHES``).
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from pyfft_tpu.hilbert import (_analytic_factored as j_factored,
+                               _analytic_factored_slab as j_slab,
+                               analytic_mask as j_mask,
+                               envelope_phase as j_envelope_phase,
+                               hilbert as j_hilbert,
+                               hilbert_1d as j_hilbert_1d,
+                               test_hilbert as j_test_hilbert)
+from pyfft_tpu.ops.mxu_fft import balanced3_factorization
+
+import pyfft_tpu_torch as pt
+from pyfft_tpu_torch.hilbert import (_analytic_factored, _factored_applies,
+                                     analytic_mask, envelope_phase)
+from pyfft_tpu_torch.ops import hilbert as kd
+
+
+def _signal(shape, cplx, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    if cplx:
+        x = x + 1j * rng.standard_normal(shape)
+    return x
+
+
+def _am(nt, fs=1e6):
+    """bench config 4's AM signal at a small size (float32)."""
+    t = np.arange(nt) / fs
+    return ((1 + 0.5 * np.sin(2 * np.pi * 500 * t))
+            * np.sin(2 * np.pi * 50e3 * t)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,cplx,nfft", [
+    ((32,), False, None), ((33,), False, None), ((100,), False, None),
+    ((255,), False, None), ((3, 64), False, None), ((64,), True, None),
+    ((2, 33), True, None), ((100,), False, 128), ((100,), False, 64),
+])
+def test_hilbert_matches_jax(shape, cplx, nfft):
+    x = _signal(shape, cplx, seed=sum(shape))
+    got = pt.hilbert(x, nfft=nfft, device="cpu")
+    want = j_hilbert(x, nfft=nfft)
+    assert got.dtype == np.complex128 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("n", [32, 33, 100, 255])
+def test_hilbert_1d_matches_jax(n):
+    x = _signal((n,), False, seed=n)
+    np.testing.assert_allclose(pt.hilbert_1d(x, device="cpu"),
+                               j_hilbert_1d(x), rtol=0, atol=1e-10)
+
+
+def test_hilbert_axis0_and_tensor_input():
+    x = _signal((64, 3), False, seed=7)
+    want = j_hilbert(x, axes=0)
+    np.testing.assert_allclose(pt.hilbert(x, axes=0), want, atol=1e-10)
+    np.testing.assert_allclose(pt.hilbert(torch.as_tensor(x), axes=0), want,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8, 9, 16, 17, 1000, 1001])
+def test_analytic_mask_matches_jax(n):
+    np.testing.assert_array_equal(analytic_mask(n), j_mask(n))
+
+
+def test_test_hilbert_matches_jax():
+    np.testing.assert_allclose(pt.hilbert_mod.test_hilbert(),
+                               j_test_hilbert(), atol=1e-12)
+
+
+@pytest.mark.parametrize("nfft,split", [
+    (1 << 24, (2048, 8192)), (9 << 20, (1152, 8192)), (1 << 12, (1, 4096)),
+    (9 << 10, (9, 1024)), (48, (3, 16)), (1000, None), (1001, None),
+    (8, None), (1 << 15, (4, 8192)), (2047 << 13, (2047, 8192)),
+])
+def test_row_split_is_a_function_of_nfft(nfft, split):
+    assert kd.row_split(nfft) == split
+    n1, M = kd.row_split(1 << 24, kd.ROW_MAX)
+    assert (n1, M) == (1024, 16384)
+
+
+@pytest.mark.parametrize("nfft,max_row", [
+    (1 << 12, kd.ROW_DEFAULT), (1 << 12, 256), (9 << 10, kd.ROW_MAX),
+    (9 << 10, 64), (1 << 14, kd.ROW_MAX),
+])
+def test_factored_chain_matches_jax_chains(nfft, max_row):
+    """float32 chains; the JAX factorization is (n1, n2, n3), the port's
+    (n1, M).  Both against the JAX chain and its Pallas slab kernel."""
+    rng = np.random.default_rng(nfft + max_row)
+    x = rng.standard_normal(nfft).astype(np.float32)
+    fac = balanced3_factorization(nfft)
+    zr0, zi0 = j_factored(jnp.asarray(x), nfft=nfft, factors=fac,
+                          prec="highest")
+    zr1, zi1 = j_slab(jnp.asarray(x), nfft=nfft, factors=fac,
+                      prec="highest", interpret=True)
+    before = kd.LAUNCHES
+    z = _analytic_factored(torch.as_tensor(x),
+                           split=kd.row_split(nfft, max_row)).numpy()
+    assert kd.LAUNCHES == before
+    assert z.dtype == np.complex64
+    for zr, zi in ((zr0, zi0), (zr1, zi1)):
+        want = np.asarray(zr) + 1j * np.asarray(zi)
+        np.testing.assert_allclose(z, want, rtol=0,
+                                   atol=3e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n1,M", [(1, 16), (3, 16), (4, 64), (9, 128),
+                                  (16, 256)])
+def test_hilbert_plain_matches_float64_dft(n1, M):
+    """The rows' section in complex128 against its definition written out
+    with NumPy DFT matrices: rtol 1e-12."""
+    rng = np.random.default_rng(n1 * M)
+    A = rng.standard_normal((n1, M)) + 1j * rng.standard_normal((n1, M))
+    N = n1 * M
+    k1 = np.arange(n1)[:, None]
+    m = np.arange(M)[None, :]
+    w = np.exp(-2j * np.pi * ((k1 * m) % N) / N)
+    D = np.exp(-2j * np.pi * np.outer(np.arange(M), np.arange(M)) / M)
+    X = (A * w) @ D.T
+    k = k1 + n1 * m
+    h = np.where((k == 0) | (k == N // 2), 1.0, np.where(k < N // 2, 2.0,
+                                                         0.0))
+    want = ((X * h) @ D.conj().T / M) * w.conj()
+    got = kd.hilbert_plain(torch.as_tensor(A)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("nt,nfft,shape", [
+    (1 << 12, None, None), (9 << 10, None, None), (1000, None, None),
+    (1000, 1024, None), (1 << 11, None, (2, 1 << 11)), (1001, None, None),
+])
+def test_envelope_phase_matches_jax(nt, nfft, shape):
+    x = _am(nt)
+    if shape is not None:
+        x = np.stack([x, 0.5 * x[::-1]])
+    before = kd.LAUNCHES
+    env, ph = envelope_phase(x, nfft=nfft, device="cpu")
+    assert kd.LAUNCHES == before
+    jenv, jph = j_envelope_phase(x, nfft=nfft)
+    assert env.dtype == ph.dtype == np.float32
+    assert env.shape == jenv.shape and ph.shape == jph.shape
+    np.testing.assert_allclose(env, jenv, rtol=1e-5)
+    keep = jenv > 1e-2 * jenv.max()
+    dphi = np.angle(np.exp(1j * (ph.astype(np.float64) - jph)))
+    assert np.abs(dphi[keep]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("nt,nfft,shape,factored", [
+    (1 << 12, 1 << 12, (1 << 12,), True),
+    (9 << 10, 9 << 10, (9 << 10,), True),
+    (1000, 1000, (1000,), False),           # power-of-two part 8 < 16
+    (1000, 1024, (1000,), False),           # nfft != nt
+    (2048, 2048, (2, 2048), False),         # N-D
+])
+def test_envelope_phase_route_is_a_gate_on_shapes(nt, nfft, shape, factored):
+    u = torch.zeros(shape, dtype=torch.float32)
+    assert _factored_applies(u, nfft, -1) is factored
+
+
+def test_envelope_phase_demodulates_am():
+    """The config-4 checks at 2^16 samples on the CPU: the envelope tracks
+    1 + 0.5 sin(2 pi 500 t) away from the edges, and the median
+    instantaneous frequency is within 1 Hz of 50 kHz."""
+    nt, fs = 1 << 16, 1e6
+    env, ph = envelope_phase(_am(nt, fs), device="cpu")
+    t = np.arange(nt) / fs
+    core = slice(2000, -2000)
+    want = 1 + 0.5 * np.sin(2 * np.pi * 500 * t)
+    np.testing.assert_allclose(env[core], want[core], atol=2e-3)
+    finst = np.diff(np.unwrap(ph.astype(np.float64))) * fs / (2 * np.pi)
+    assert abs(np.median(finst) - 50e3) < 1.0
+
+
+def test_envelope_phase_mesh_raises():
+    with pytest.raises(NotImplementedError, match="mesh"):
+        envelope_phase(np.ones(64), mesh=object())
+
+
+def test_hilbert_cuda_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        kd.hilbert_cuda(torch.zeros(4, 16, dtype=torch.complex64))
