@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``pyfft_tpu_torch/csrc`` with ``nvcc``,
 holds each against its plain PyTorch version at the shapes of the main
-paths, then drives the two main paths:
+paths, then drives the main paths:
 
 - the fused FIR -> Welch cross-spectral chain at the size of bench
   configurations 0 and 5: 8 channels of 2**25 float32 samples at fs = 1 MHz
@@ -18,15 +18,25 @@ paths, then drives the two main paths:
   (phase 10), after kernel D against its plain version (phase 9); then a
   light drive of the analysis tier on the card (``downsample_efficient``
   of 8 channels of 2**22 samples, the blocked IIR; the synthetic Doppler
-  chain through ``fftanal``), held against the CPU route.
+  chain through ``fftanal``), held against the CPU route;
+- the heat-pulse transport analysis, ``HeatPulseFFT(...).run(fft_backend=
+  'pallas')``, on a 10 s programme of 32 ECE channels at 40 kHz (phase
+  12), after kernel E against its plain version (phase 11): nwins 4871,
+  not a power of two, so kernel E takes the Welch stage;
+- the profiling tier: kernels F and G against their plain versions, then
+  ``utils.profiling.measure_pipeline_overlap`` at its default size
+  (phase 13).
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
 each path runs with the counts set to 0 just before it and read just
-after), the card's ``nvidia-smi`` name and power limit, and last
-``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
-is then non-zero and no ``ok`` line is printed.  There is no CPU fallback:
-without a CUDA device the script exits with code 2.
+after; each kernel's ``bound_ms`` from ``utils.profiling.bound_ms`` with
+the card's book peaks, and ``library_ms`` the time of one PyTorch call
+that computes the same function, where there is one), the card's
+``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Any failed check raises: the exit code is then non-zero and no
+``ok`` line is printed.  There is no CPU fallback: without a CUDA device
+the script exits with code 2.
 
 Float32 convolutions and matmuls run in full float32 (both TF32 flags are
 set to False), so the plain versions are float32 references computed by
@@ -36,6 +46,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,6 +63,22 @@ PHASE_TOL = 1e-4    # config 4: wrapped phase (rad) where env > 1e-2 max
 ENV_TOL = 1e-3      # config 4: |envelope - (1 + 0.5 sin)| away from the edges
 IIR_TOL = 1e-12     # blocked IIR: card vs CPU, float64, relative to max
 DOPPLER_TOL = 1e-4  # Doppler chain: kernel C (float32) vs CPU (float64)
+DFT_TOL = 2e-5      # kernel E: max |kernel - plain| / max |plain|, per output
+COLSUM_TOL = 1e-5   # kernel F: the same (float32 sums in another order)
+# kernel G: the same (both sum in float32; 1.6e-7 measured on the card); a
+# chain without the bf16 re-rounding between passes misses the plain
+# version by more than 1e-3 and must fail it (the control in phase 13)
+CHAIN_TOL = 1e-4
+# heat-pulse run, kernel route (float32) vs 'xla' (float64): |dAmp| (log
+# amplitude), |dPhase| (rad), |dCoh|; kernel E's 2e-5 of the largest power
+# is up to 4e-4 of the outermost channel's (5% of it)
+HP_TOL = 1e-4
+TAU_DAMP = 0.05     # the outermost of 32 channels at exp(-31*0.05) = 0.21
+HP_RUNINFO = dict(  # tests/test_heatpulse.py's RUNINFO over a 10 s programme
+    fmod=33.0, harms=[1, 2], intno2per=2, overlap=0.5, winfun="hanning",
+    fwid=8.0, tbounds=[0.25, 9.75], DutyCycle=0.5, usesegs=False, igch=None,
+    plotit=False, verbose=False, saveit=False, useMLAB=False, savedir=".",
+    sfilename="hp", vmcfil="", xpname="synth")
 
 
 def emit(phase, **fields):
@@ -70,6 +97,18 @@ def rel_err(got, ref):
     ref = torch.as_tensor(ref).to(torch.complex128)
     scale = ref.abs().max().item()
     return (got.to(ref.device) - ref).abs().max().item() / scale, scale
+
+
+def chain_unrounded(x, T, rows_blk, passes):
+    """Kernel G's chain without the bf16 re-rounding between passes (float32
+    throughout after ``bf16(x)``), streamed: the control that ``CHAIN_TOL``
+    must fail."""
+    import torch
+    y = x.reshape(-1, 128, x.shape[1]).to(torch.bfloat16).float()
+    Tf = T.float()
+    for _ in range(passes):
+        y = torch.matmul(Tf, y)
+    return y.sum(dim=(0, 1)).reshape(1, -1)
 
 
 def time_ms(fn, reps=5):
@@ -218,8 +257,9 @@ def main():
     import pyfft_tpu_torch as pt
     from pyfft_tpu_torch import segmentation as seg
     from pyfft_tpu_torch.hilbert import _analytic_factored
-    from pyfft_tpu_torch.ops import _build, fir, stft, welch
+    from pyfft_tpu_torch.ops import _build, fir, probe, stft, welch, welch_v1
     from pyfft_tpu_torch.ops import hilbert as hk
+    from pyfft_tpu_torch.utils import profiling
     check(Path(pt.__file__).resolve().parent == HERE / "pyfft_tpu_torch",
           f"pyfft_tpu_torch imported from {pt.__file__}")
     check("jax" not in sys.modules and "pyfft_tpu" not in sys.modules,
@@ -229,6 +269,23 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    def reset_counts():
+        """Every kernel's launch count to 0, before a main path."""
+        fir.LAUNCHES = welch.LAUNCHES = stft.LAUNCHES = hk.LAUNCHES = 0
+        welch_v1.LAUNCHES = 0
+        probe.LAUNCHES.update(colsum=0, chain=0)
+
+    def bound(flops, nbytes, unit="fp32"):
+        """The kernels line's bound_ms and bound_by for this card."""
+        ms, by = profiling.bound_ms(flops, nbytes, unit, kind=smi)
+        return dict(bound_ms=ms, bound_by=by)
+
+    def fir_ops(nt, ntaps, nch):
+        """The least operations of a causal FIR: direct form or
+        overlap-save, whichever needs fewer."""
+        return min(profiling.fir_flops(nt, ntaps, nch, "direct"),
+                   profiling.fir_flops(nt, ntaps, nch, "overlap-save"))
 
     # ---- phase 1: device and build --------------------------------------- #
     t0 = time.perf_counter()
@@ -263,8 +320,16 @@ def main():
         check(err <= FIR_TOL, f"kernel A {list(sig.shape)} K={K}: rel err "
               f"{err} > {FIR_TOL}")
         if nt == nt0 and K == 129:
-            kernels["fir"] = dict(max_abs_err=max_abs, ms=ms,
-                                  plain_ms=plain_ms)
+            # library: one cuDNN convolution (zero padding on both sides)
+            wflip = torch.as_tensor(np.ascontiguousarray(taps[::-1]),
+                                    dtype=torch.float32,
+                                    device=dev).view(1, 1, K)
+            lib_ms = time_ms(lambda: torch.nn.functional.conv1d(
+                sig.view(-1, 1, nt), wflip, padding=K - 1))
+            kernels["fir"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
+                **bound(fir_ops(nt, K, sig.shape[0]), 8.0 * sig.numel()))
     del sig9, sig
 
     # ---- phase 3: kernel B against its plain version --------------------- #
@@ -299,12 +364,16 @@ def main():
             check(e <= WELCH_TOL,
                   f"kernel B config {cfg} {name}: rel err {e} > {WELCH_TOL}")
         if cfg == 0:
-            kernels["welch"] = dict(max_abs_err=max_abs, ms=ms,
-                                    plain_ms=plain_ms)
+            nsig = 1 + y.shape[0]
+            kernels["welch"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=None,
+                **bound(fir_ops(nt, len(taps), nsig)
+                        + profiling.welch_flops(plan.navr, nwins, NCH),
+                        4.0 * nsig * (nt + 3 * plan.nnyquist)))
 
     # ---- main path: counts from here on ---------------------------------- #
-    fir.LAUNCHES = 0
-    welch.LAUNCHES = 0
+    reset_counts()
 
     # ---- phase 4: config 0 through welch_filtered_cross_spectra ---------- #
     nwins = 2048
@@ -411,15 +480,24 @@ def main():
              out_mb=8 * nsig * navr * nwins / 1e6)
         check(err <= STFT_TOL, f"kernel C {name}: rel err {err} > {STFT_TOL}")
         if name.startswith("a_"):
-            kernels["stft"] = dict(max_abs_err=max_abs, ms=ms,
-                                   plain_ms=plain_ms)
+            # library: torch.stft of the mean-removed signal
+            xm = x - x.mean()
+            wt = torch.as_tensor(win, dtype=torch.float32, device=dev)
+            lib_ms = time_ms(lambda: torch.stft(
+                xm, nwins, hop_length=hop, window=wt, center=False,
+                onesided=False, return_complex=True))
+            del xm
+            kernels["stft"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
+                **bound(navr * (2 * nwins
+                                + profiling.fft_flops(nwins, real=True)),
+                        4.0 * nt + 8.0 * navr * nwins))
     del cases, iq, x, y
     torch.cuda.empty_cache()
 
     # ---- second main path: counts from here on --------------------------- #
-    fir.LAUNCHES = 0
-    welch.LAUNCHES = 0
-    stft.LAUNCHES = 0
+    reset_counts()
 
     # ---- phase 7: config 2 through fftanal ------------------------------- #
     t2 = np.arange(nt2) / FS
@@ -548,17 +626,18 @@ def main():
               f"kernel D {name}: rel err {err_rows} (rows), {err_z} "
               f"(analytic signal) > {HILB_TOL}")
         if name.startswith("a_"):
-            kernels["hilbert"] = dict(max_abs_err=max_abs, ms=ms,
-                                      plain_ms=plain_ms)
+            n1, M = split
+            kernels["hilbert"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=None,
+                **bound(2 * profiling.fft_flops(M, batch=n1) + 14.0 * nt,
+                        16.0 * nt))
         del A, x
     del cases, sig
     torch.cuda.empty_cache()
 
     # ---- third main path: counts from here on ---------------------------- #
-    fir.LAUNCHES = 0
-    welch.LAUNCHES = 0
-    stft.LAUNCHES = 0
-    hk.LAUNCHES = 0
+    reset_counts()
 
     # ---- phase 10: config 4 through hilbert_mod.envelope_phase ---------- #
     torch.cuda.synchronize()
@@ -657,6 +736,225 @@ def main():
           f"Doppler line at {fd.freq[ipk]} Hz")
     check(dop_err <= DOPPLER_TOL, f"Doppler Pxx card vs CPU {dop_err}")
     del fd, fd0
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: kernel E against its plain version -------------------- #
+    from pyfft_tpu_torch import heatpulse as php
+    fs_hp = 40e3
+    hp_data = php.synth_heatpulse_data(nch=32, fmod=33.0, fs=fs_hp, T=10.0,
+                                       seed=0, tau_damp=TAU_DAMP)
+    # the span fft_pwelch analyses (tbounds 0.25 .. 9.75 s)
+    span = slice(int(0.25 * fs_hp), int(9.75 * fs_hp) + 1)
+    x_hp = torch.as_tensor(hp_data["refsig"][span], dtype=torch.float32,
+                           device=dev)
+    y_hp = torch.as_tensor(np.ascontiguousarray(hp_data["sig"][span].T),
+                           dtype=torch.float32, device=dev)
+    x8, y8 = x0[:1 << 22], y0[:, :1 << 22]
+    rng = np.random.default_rng(SEED + 5)
+    B11, n11 = 4096, 2047
+    xfr = torch.as_tensor(rng.standard_normal((B11, n11)),
+                          dtype=torch.float32, device=dev)
+    yfr = torch.as_tensor(rng.standard_normal((4, B11, n11)),
+                          dtype=torch.float32, device=dev)
+    # (a) the heat-pulse geometry, (b) linear detrend at a radix-2 nwins,
+    # (c) the pre-framed entry (hop = nwins, no detrend) at an odd nwins
+    cases = (("a_heatpulse", x_hp, y_hp, 4871, 2435, 155, 1),
+             ("b_linear_detrend_radix2", x8, y8, 4096, 2048,
+              ((1 << 22) - 4096) // 2048 + 1, -1),
+             ("c_preframed_odd", xfr.reshape(-1), yfr.reshape(4, -1), n11,
+              n11, B11, 0))
+    for name, x, y, nwins, hop, navr, det in cases:
+        win = np.hanning(nwins + 1)[:-1]
+        nf = (nwins + 1) // 2 if nwins % 2 else nwins // 2
+        kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=det)
+        if name.startswith("c_"):
+            norm = 1.0
+            got = welch_v1.welch_power_pallas(xfr, yfr, win, nf)
+        else:
+            norm = 1.0 / navr
+            got = welch_v1.welch_dft_cuda(x, y, win, nf, norm, **kw)
+        ref = welch_v1.welch_dft_plain(x, y, win, nf, norm, **kw)
+        errs = {"Pxx": rel_err(got[0], ref[0]),
+                "Pyy": rel_err(got[1], ref[1]),
+                "Pxy": rel_err(torch.complex(got[2], got[3]),
+                               torch.complex(ref[2], ref[3]))}
+        del got, ref
+        ms = time_ms(lambda: welch_v1.welch_dft_cuda(x, y, win, nf, norm,
+                                                     **kw))
+        plain_ms = time_ms(lambda: welch_v1.welch_dft_plain(x, y, win, nf,
+                                                            norm, **kw))
+        max_abs = max(e * sc for e, sc in errs.values())
+        nsig = 1 + y.shape[0]
+        b11 = bound(profiling.welch_flops(navr, nwins, nsig - 1),
+                    4.0 * nsig * (x.shape[0] + 3 * nf))
+        emit("welch_dft_vs_plain", case=name, nsig=nsig, nt=x.shape[0],
+             nwins=nwins, hop=hop, navr=navr, detrend_style=det,
+             fft_points=welch_v1.bluestein_size(nwins),
+             rel_err={k: e for k, (e, _) in errs.items()},
+             max_abs_err=max_abs, tol=DFT_TOL, ms=ms, plain_ms=plain_ms,
+             **b11)
+        for k, (e, _) in errs.items():
+            check(e <= DFT_TOL, f"kernel E {name} {k}: rel err {e} > "
+                  f"{DFT_TOL}")
+        if name.startswith("a_"):
+            kernels["welch_dft"] = dict(max_abs_err=max_abs, ms=ms,
+                                        plain_ms=plain_ms, library_ms=None,
+                                        **b11)
+    del cases, x, y, xfr, yfr, x8, y8
+    torch.cuda.empty_cache()
+
+    # ---- fourth main path: counts from here on --------------------------- #
+    reset_counts()
+
+    # ---- phase 12: HeatPulseFFT at full size ------------------------------ #
+    runs = {}
+    for backend in ("pallas", "xla"):
+        drv = php.HeatPulseFFT(dict(HP_RUNINFO), dict(hp_data))
+        drv.PreCheck()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv.run(fft_backend=backend)
+        torch.cuda.synchronize()
+        runs[backend] = (drv, time.perf_counter() - t0)
+        if backend == "pallas":
+            check(welch_v1.LAUNCHES == 1 and welch.LAUNCHES == 0,
+                  f"the heat-pulse run launched kernel E "
+                  f"{welch_v1.LAUNCHES} times and kernel B "
+                  f"{welch.LAUNCHES} times")
+            launches["welch_dft"] = welch_v1.LAUNCHES
+    check(welch_v1.LAUNCHES == 1 and fir.LAUNCHES == welch.LAUNCHES
+          == stft.LAUNCHES == hk.LAUNCHES == 0,
+          "the 'xla' run launched a kernel")
+    drv, wall_run = runs["pallas"]
+    # fft_pwelch's plan, read from its bins (Nnyquist of them, fs/nwins
+    # apart; the settings' own nwins rounds the periods otherwise)
+    nwins_hp = int(round(fs_hp / float(drv.freq[1] - drv.freq[0])))
+    noverlap_hp = seg.get_noverlap(nwins_hp, drv.overlap)
+    check((nwins_hp, noverlap_hp, int(drv.Navr), drv.nf)
+          == (4871, 2436, 155, 2436),
+          f"fft_pwelch planned nwins {nwins_hp}, noverlap {noverlap_hp}, "
+          f"Navr {drv.Navr}, Nnyquist {drv.nf}")
+    amp1 = drv.Amp[:, 0]
+    dlag = np.diff(np.unwrap(drv.Phase[:, 0]))
+    lag_want = 2 * np.pi * 33.0 * 2.0e-3
+    ref_drv = runs["xla"][0]
+    errs12 = {f: float(np.abs(getattr(drv, f) - getattr(ref_drv, f)).max())
+              for f in ("Amp", "Phase", "Coh")}
+    check(np.all(np.isfinite(drv.Amp)) and np.all(np.isfinite(drv.Phase)),
+          "non-finite heat-pulse results")
+    check(np.all(np.diff(amp1) < 0), "fundamental amplitude does not decay")
+    check(np.all(np.abs(dlag / lag_want - 1) <= 0.05),
+          f"phase lag per channel {dlag} against {lag_want}")
+    check(abs(drv.fmods[0] - 33.0) < 2.0, f"fmods[0] = {drv.fmods[0]}")
+    check(drv.Coh[0, 0] > 0.95, f"Coh[0, 0] = {drv.Coh[0, 0]}")
+    for f, e in errs12.items():
+        check(e <= HP_TOL, f"heat-pulse {f}: kernel vs xla {e}")
+    # one more kernel-route run under torch.profiler (after the counts).
+    # The wall of run(), split by the ranges that heatpulse and fft_pwelch
+    # mark (host clock): the Welch call = host -> device of the float64
+    # inputs + the device core (float32 cast and transposed copy, kernel E
+    # with its prologue, the small copies back, which synchronize) + the
+    # host float64 finalization; the rest of run() is the host integration.
+    # The device's busy time: its own kernel and copy events (CPU ops and
+    # the ranges' device-side copies carry their kernels' time too and are
+    # left out).
+    stages = ("heatpulse.fft_pwelch", "fft_pwelch.h2d",
+              "fft_pwelch.device_core")
+    with tempfile.TemporaryDirectory() as logdir, \
+            profiling.trace(logdir) as tr:
+        drv = php.HeatPulseFFT(dict(HP_RUNINFO), dict(hp_data))
+        drv.PreCheck()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv.run(fft_backend="pallas")
+        torch.cuda.synchronize()
+        wall_traced = time.perf_counter() - t0
+    cuda_t = torch.autograd.DeviceType.CUDA
+    device_us, host = {}, {}
+    for e in tr.key_averages():
+        if e.key in stages and e.device_type != cuda_t:
+            host[e.key] = (e.cpu_time_total / 1e6, e.count)
+        elif e.device_type == cuda_t and e.key not in stages \
+                and not getattr(e, "is_user_annotation", False):
+            device_us[e.key] = e.self_device_time_total
+    check(all(host.get(k, (0, 0))[1] == 1 for k in stages),
+          f"profiler ranges {host}, want each of {stages} once")
+    busy_s = sum(device_us.values()) / 1e6
+    kernel_e_s = sum(v for k, v in device_us.items()
+                     if "dft_" in k or "sum_partials" in k) / 1e6
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    t_pw, t_h2d, t_core = (host[k][0] for k in stages)
+    emit("main_heatpulse", nch=32, fs=fs_hp, T_s=10.0, tau_damp=TAU_DAMP,
+         nwins=nwins_hp, navr=int(drv.Navr), noverlap=noverlap_hp,
+         fmods=drv.fmods.tolist(), coh_00=float(drv.Coh[0, 0]),
+         amp_fundamental=amp1.tolist(),
+         dlag_rel_err_max=float(np.abs(dlag / lag_want - 1).max()),
+         abs_err_vs_xla=errs12, tol=HP_TOL,
+         wall_s_run_pallas=wall_run, wall_s_run_xla=runs["xla"][1])
+    emit("heatpulse_profile", wall_s=wall_traced, device_busy_s=busy_s,
+         device_idle_share=1 - busy_s / wall_traced,
+         wall_s_split={
+             "fft_pwelch": t_pw, "h2d": t_h2d, "device_core": t_core,
+             "kernel_e_device": kernel_e_s,
+             "host_finalization": t_pw - t_h2d - t_core,
+             "host_integration": wall_traced - t_pw},
+         top_device_ms={k: v / 1e3 for k, v in top})
+    check(busy_s > 0 and kernel_e_s > 0, "the profiler saw no device time")
+    del runs, drv, ref_drv, hp_data, x_hp, y_hp, tr
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: kernels F and G, then measure_pipeline_overlap -------- #
+    nrows, ncols, rows_blk, passes = 65536, 1152, 512, 12
+    xp = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (nrows, ncols)), dtype=torch.float32, device=dev)
+    Tp = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (probe.GROUP, probe.GROUP)) / 16.0, device=dev).to(torch.bfloat16)
+    for name, fn, plain, lib, tol, fl, nbytes, unit in (
+            ("colsum", lambda: probe.colsum_cuda(xp, rows_blk),
+             lambda: probe.colsum_plain(xp, rows_blk),
+             lambda: torch.sum(xp, 0, keepdim=True), COLSUM_TOL,
+             float(nrows * ncols), 4.0 * (nrows + 1) * ncols, "fp32"),
+            ("chain", lambda: probe.chain_cuda(xp, Tp, rows_blk, passes),
+             lambda: probe.chain_plain(xp, Tp, rows_blk, passes), None,
+             CHAIN_TOL, 2.0 * nrows * passes * probe.GROUP * ncols,
+             4.0 * (nrows + 1) * ncols, "bf16")):
+        err, scale = rel_err(fn(), plain())
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain)
+        lib_ms = time_ms(lib) if lib is not None else None
+        b13 = bound(fl, nbytes, unit)
+        emit("probe_vs_plain", kernel=name, nrows=nrows, N=ncols,
+             rows_blk=rows_blk, passes=passes if name == "chain" else None,
+             rel_err=err, max_abs_err=err * scale, tol=tol, ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, **b13)
+        check(err <= tol, f"kernel {name}: rel err {err} > {tol}")
+        if name == "chain":
+            ctl, _ = rel_err(chain_unrounded(xp, Tp, rows_blk, passes),
+                             plain())
+            emit("chain_control", rel_err_without_rerounding=ctl,
+                 tol=CHAIN_TOL)
+            check(ctl > 10 * CHAIN_TOL, f"a chain without the bf16 "
+                  f"re-rounding is within {ctl} of the plain version")
+        kernels[name] = dict(max_abs_err=err * scale, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, **b13)
+    del xp, Tp
+    torch.cuda.empty_cache()
+
+    # ---- fifth main path: counts from here on ---------------------------- #
+    reset_counts()
+    ov = profiling.measure_pipeline_overlap()
+    launches["colsum"] = probe.LAUNCHES["colsum"]
+    launches["chain"] = probe.LAUNCHES["chain"]
+    check(fir.LAUNCHES == welch.LAUNCHES == stft.LAUNCHES == hk.LAUNCHES
+          == welch_v1.LAUNCHES == 0,
+          "measure_pipeline_overlap launched a Welch/STFT/Hilbert kernel")
+    hbm_gbs = profiling.device_peaks(smi)[2]
+    emit("main_pipeline_overlap", **ov, hbm_gbs_book=hbm_gbs,
+         launches={"colsum": launches["colsum"], "chain": launches["chain"]})
+    check(ov["read_gbs"] <= 1.05 * hbm_gbs,
+          f"read {ov['read_gbs']} GB/s above 1.05 x the book's {hbm_gbs}")
+    check(all(np.isfinite(v) for v in ov.values()),
+          "non-finite overlap measurement")
 
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
@@ -667,12 +965,17 @@ def main():
               "stft": ("pyfft_tpu_torch/csrc/stft.cu",
                        "pyfft_tpu/ops/pallas_welch3.py:1139"),
               "hilbert": ("pyfft_tpu_torch/csrc/hilbert.cu",
-                          "pyfft_tpu/hilbert.py:223")}
+                          "pyfft_tpu/hilbert.py:223"),
+              "welch_dft": ("pyfft_tpu_torch/csrc/welch_dft.cu",
+                            "pyfft_tpu/ops/pallas_welch.py:147"),
+              "colsum": ("pyfft_tpu_torch/csrc/probe.cu",
+                         "pyfft_tpu/utils/profiling.py:222"),
+              "chain": ("pyfft_tpu_torch/csrc/probe.cu",
+                        "pyfft_tpu/utils/profiling.py:244")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source[name][0],
          "replaces": source[name][1], "launches": launches[name],
-         **kernels[name]} for name in ("fir", "welch", "stft", "hilbert")]}),
-        flush=True)
+         **kernels[name]} for name in source]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

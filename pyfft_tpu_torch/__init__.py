@@ -10,7 +10,9 @@ DFT -> averaged auto-/cross-powers -> ``fft_pwelch``'s coherence, phase and
 third is the Hilbert demodulation path (``hilbert``, ``envelope_phase``)
 and the analysis tier around it: the rest of ``filters``, ``notch``,
 ``deriv``, ``laplace``, ``ccf``, ``doppler``, ``pca``, ``dft``,
-``crosscheck`` and the ``fft_analysis`` facade.
+``crosscheck`` and the ``fft_analysis`` facade.  The fourth is the
+heat-pulse transport analysis (``heatpulse``, ``HeatPulseFFT``) with Welch
+at any segment length, and ``utils.profiling`` with its two probes.
 
 Map from the JAX package:
 
@@ -29,7 +31,12 @@ entries of ``ops/pallas_welch.py``
 ``ops/pallas_welch3.py`` (STFT     ``ops/stft.py`` + ``csrc/stft.cu``
 entries)
 ``hilbert.py`` (slab kernel)       ``ops/hilbert.py`` + ``csrc/hilbert.cu``
-(the FFT of kernels B, C and D)    ``csrc/fft.cuh``
+``ops/pallas_welch.py`` (v1:       ``ops/welch_v1.py`` +
+``welch_pallas_fused``,            ``csrc/welch_dft.cu``
+``welch_power_pallas``)
+``utils/profiling.py`` (probes)    ``ops/probe.py`` + ``csrc/probe.cu``
+(the FFT of kernels B to E)       ``csrc/fft.cuh``
+(the partial sums of B, E, F, G)  ``csrc/reduce.cuh``
 ``ops/transform.py``               ``ops/transform.py`` (``torch.fft``)
 (kernel build and load)            ``ops/_build.py``
 ``filters.py``                     ``filters.py`` (blocked IIR)
@@ -45,6 +52,9 @@ entries)
 ``dft.py``                         ``dft.py`` (copy)
 ``fft_analysis.py``                ``fft_analysis.py`` (facade)
 ``examples.py``                    ``examples.py``
+``heatpulse.py``                   ``heatpulse.py``
+``utils/profiling.py``             ``utils/profiling.py`` (H100 peaks)
+``utils/workunits.py``             ``utils/workunits.py`` (copy)
 ``config.py``                      ``config.py`` (+ ``from_reference``)
 =================================  ======================================
 
@@ -106,6 +116,8 @@ from . import doppler
 from .doppler import cog, cogspec
 from . import pca
 from .pca import PCA, basic_pca
+from . import heatpulse
+from .heatpulse import HeatPulseFFT
 from . import config
 from .config import SpectralConfig, welch_psd
 from . import dft as dft_mod
@@ -159,6 +171,8 @@ __all__ = [
     "pca",
     "PCA",
     "basic_pca",
+    "heatpulse",
+    "HeatPulseFFT",
     "config",
     "SpectralConfig",
     "welch_psd",

@@ -26,11 +26,12 @@
 // float64 host table (load_segment and fft_radix2, fft.cuh, shared with
 // kernel C).  It keeps its bins of X in registers while the
 // buffer is reused for Y_c.  Sums over segments are held in float64
-// registers; each block writes per-group partials, which welch_reduce sums
-// in a fixed order and scales by `norm`.
+// registers; each block writes per-group partials, which sum_partials
+// (reduce.cuh) sums in a fixed order and scales by `norm`.
 #include <cuda_runtime.h>
 
 #include "fft.cuh"
+#include "reduce.cuh"
 
 namespace {
 
@@ -131,18 +132,6 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
 }
 
-// out[i] = norm * sum_g part[g, i], summed in group order in float64.
-__global__ void welch_reduce(const double* __restrict__ part,
-                             float* __restrict__ out, int ngroups,
-                             long long per_group, double norm) {
-    const long long i =
-        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (i >= per_group) return;
-    double acc = 0.0;
-    for (int g = 0; g < ngroups; ++g) acc += part[g * per_group + i];
-    out[i] = static_cast<float>(acc * norm);
-}
-
 struct Geometry {
     int threads, bins, logN;
     size_t smem;
@@ -227,8 +216,5 @@ extern "C" int pyfft_welch(const float* x, const float* y,
     }
     if (rc != 0) return rc;
     const long long per_group = static_cast<long long>(nch + 1) * 3 * nfreq;
-    const int rt = 256;
-    welch_reduce<<<static_cast<unsigned>((per_group + rt - 1) / rt), rt, 0,
-                   stream>>>(part, out, ngroups, per_group, norm);
-    return static_cast<int>(cudaGetLastError());
+    return launch_sum_partials(part, out, ngroups, per_group, norm, stream);
 }

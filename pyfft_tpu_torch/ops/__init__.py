@@ -9,18 +9,27 @@
 - :mod:`pyfft_tpu_torch.ops.hilbert` — kernel D, the rows' section of the
   factored analytic-signal transform (``csrc/hilbert.cu``), and its plain
   version;
+- :mod:`pyfft_tpu_torch.ops.welch_v1` — kernel E, Welch cross-powers at
+  any segment length (``csrc/welch_dft.cu``), and its plain version;
+- :mod:`pyfft_tpu_torch.ops.probe` — kernels F and G, the memory and
+  compute probes of ``utils.profiling.measure_pipeline_overlap``
+  (``csrc/probe.cu``), and their plain versions;
 - :mod:`pyfft_tpu_torch.ops.transform` — NumPy-in, NumPy-out ``torch.fft``
   helpers;
 - :mod:`pyfft_tpu_torch.ops._build` — builds and loads the kernels with
   ``nvcc`` at first use on a CUDA tensor.
 """
-from . import fir, welch, stft, hilbert, transform
+from . import fir, welch, welch_v1, stft, hilbert, probe, transform
 from .fir import fir_pallas, PALLAS_FIR_MAX_TAPS
 from .welch import (welch_fir_pallas3, welch_fir_pallas_fused,
                     welch_pallas3_twosided, pallas_welch2_applicable)
+from .welch_v1 import (welch_pallas_fused, welch_power_pallas,
+                       pallas_welch_applicable)
 from .stft import stft_pallas3, stft_applicable
 
-__all__ = ["fir", "welch", "stft", "hilbert", "transform", "fir_pallas",
-           "PALLAS_FIR_MAX_TAPS", "stft_pallas3", "stft_applicable",
-           "welch_fir_pallas3", "welch_fir_pallas_fused",
-           "welch_pallas3_twosided", "pallas_welch2_applicable"]
+__all__ = ["fir", "welch", "welch_v1", "stft", "hilbert", "probe",
+           "transform", "fir_pallas", "PALLAS_FIR_MAX_TAPS", "stft_pallas3",
+           "stft_applicable", "welch_fir_pallas3", "welch_fir_pallas_fused",
+           "welch_pallas3_twosided", "pallas_welch2_applicable",
+           "welch_pallas_fused", "welch_power_pallas",
+           "pallas_welch_applicable"]

@@ -8,10 +8,15 @@ Counterpart of :mod:`pyfft_tpu.spectral` (the role of the reference's
 * two transform paths, named as in the JAX package:
   - ``'xla'`` (alias ``'mxu'``): ``torch.fft`` on frames (complex input
     handled natively), keeping the per-segment arrays;
-  - ``'pallas'``: kernel B (:mod:`pyfft_tpu_torch.ops.welch`) on CUDA
-    tensors, its plain version on CPU tensors, for one-sided real input
-    and two-sided complex input.  Where its gate fails it takes the
-    ``'xla'`` core, as the JAX package takes ``'mxu'``;
+  - ``'pallas'``: the kernel the JAX package's gates pick
+    (:func:`pallas_route`), on CUDA tensors, or its plain version on CPU
+    tensors: kernel B (:mod:`pyfft_tpu_torch.ops.welch`; power-of-two
+    ``nwins`` 16..16384, mean or no detrend) for one-sided real and
+    two-sided complex input, else kernel E
+    (:mod:`pyfft_tpu_torch.ops.welch_v1`; any ``nwins`` that TPU kernel
+    #7 tiles, up to 5452, and linear detrend) for one-sided real input.
+    Where neither gate holds it takes the ``'xla'`` core, as the JAX
+    package takes ``'mxu'``;
 * the O(nfreq) finalization (coherence, variances, amplitude spectra,
   lag-domain correlations) runs on the host in float64 NumPy, as in the
   JAX package;
@@ -22,6 +27,12 @@ Counterpart of :mod:`pyfft_tpu.spectral` (the role of the reference's
 Device: tensors keep their device; NumPy inputs go to ``device=`` when it
 is given, else to ``cuda`` when a CUDA device is present, else to the CPU
 (the JAX package likewise runs on its default backend).
+
+In a ``torch.profiler`` trace, ``fft_pwelch`` marks two ranges
+(:func:`pyfft_tpu_torch.utils.profiling.stage`): ``fft_pwelch.h2d``, the
+inputs to their device, and ``fft_pwelch.device_core``, the transform path
+up to the averaged spectra on the host; the rest of the call is the host
+finalization.
 """
 from __future__ import annotations
 
@@ -30,13 +41,14 @@ import torch
 
 from .utils.structure import Struct
 from .utils.detrend import detrend_func
+from .utils.profiling import stage
 from .windows import windows
 from . import segmentation as seg
 
 
 __all__ = ["fft_pwelch", "fftinfosc", "Cxy_Cxy2", "welch_cross_spectra",
            "welch_filtered_cross_spectra", "csd_oracle",
-           "resolve_fft_backend"]
+           "resolve_fft_backend", "pallas_route"]
 
 
 def resolve_fft_backend(fft_backend=None) -> str:
@@ -263,24 +275,51 @@ _NO_SEGMENTS = dict(Pxx_seg=None, Pyy_seg=None, Pxy_seg=None,
                     Xfft_seg=None, Yfft_seg=None)
 
 
+def pallas_route(*, nwins, noverlap, navr, nnyquist, onesided,
+                 detrend_style, ntmodel, is_cplx):
+    """The kernel ``fft_backend='pallas'`` takes for a geometry, following
+    the JAX package's gates (``pyfft_tpu/spectral.py:398-479``) gate for
+    gate: ``'B'`` (kernel B, :mod:`~pyfft_tpu_torch.ops.welch`; also the
+    two-sided complex path), else ``'E'`` (kernel E,
+    :mod:`~pyfft_tpu_torch.ops.welch_v1`) where the gate of TPU kernel #7
+    holds, else None (the ``torch.fft`` core), which happens only where the
+    JAX package too leaves Pallas for ``'mxu'``."""
+    from .ops.welch import pallas_welch2_applicable
+    from .ops.welch_v1 import pallas_welch_applicable
+    if ntmodel or is_cplx == onesided:
+        # per-segment reference model, one-sided complex or two-sided real
+        return None
+    if pallas_welch2_applicable(nwins, noverlap, navr,
+                                detrend_style=detrend_style):
+        return "B"
+    if not is_cplx and pallas_welch_applicable(nwins, nnyquist, navr):
+        return "E"
+    return None
+
+
 def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
                        nfft, nnyquist, onesided, detrend_style, ntmodel):
-    """Kernel-B Welch path, or None where its gate fails.
+    """The kernel Welch paths (:func:`pallas_route`), or None where no
+    kernel's gate holds.
 
     ``x (nt,)``, ``y (nch, nt)`` tensors.  The one-sided bin doubling is a
     *vector* scale, so the scalar ``norm`` handed to the kernel carries
     only ``S1^2*ENBW*navr`` and the vector is applied to the (small)
     averaged outputs here.  Per-segment arrays are not produced.
     """
-    from .ops.welch import (welch_fir_pallas_fused, welch_pallas3_twosided,
-                            pallas_welch2_applicable)
+    from .ops.welch import welch_fir_pallas_fused, welch_pallas3_twosided
+    from .ops.welch_v1 import welch_pallas_fused
     is_cplx = x.is_complex() or y.is_complex()
+    route = pallas_route(nwins=nwins, noverlap=noverlap, navr=navr,
+                         nnyquist=nnyquist, onesided=onesided,
+                         detrend_style=detrend_style, ntmodel=ntmodel,
+                         is_cplx=is_cplx)
+    if route is None:
+        return None
     norm = np.float32(1.0 / (s1sq_enbw * navr))
     kw = dict(navr=navr, nwins=nwins, noverlap=noverlap,
               detrend_style=detrend_style)
-    if (is_cplx and not onesided and not ntmodel
-            and pallas_welch2_applicable(nwins, noverlap, navr,
-                                         detrend_style=detrend_style)):
+    if is_cplx:
         # fused two-sided complex path (the Doppler IQ configuration)
         Pxx, Pyy, Pr, Pi = welch_pallas3_twosided(x, y, win, norm, **kw)
 
@@ -289,17 +328,12 @@ def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
         return dict(Pxx=sh(Pxx).astype(np.complex128),
                     Pyy=sh(Pyy).T.astype(np.complex128),
                     Pxy=(sh(Pr) + 1j * sh(Pi)).T, **_NO_SEGMENTS)
-    if (onesided and not ntmodel and not is_cplx
-            and pallas_welch2_applicable(nwins, noverlap, navr,
-                                         detrend_style=detrend_style)):
-        Pxx, Pyy, Pr, Pi = welch_fir_pallas_fused(x, y, win, nnyquist, norm,
-                                                  **kw)
-        sc = _onesided_power_scale(nfft, nnyquist).astype(np.float32)
-        return dict(Pxx=(_np(Pxx) * sc).astype(np.complex128),
-                    Pyy=(_np(Pyy) * sc).T.astype(np.complex128),
-                    Pxy=(_np(Pr) * sc + 1j * (_np(Pi) * sc)).T,
-                    **_NO_SEGMENTS)
-    return None
+    fused = welch_fir_pallas_fused if route == "B" else welch_pallas_fused
+    Pxx, Pyy, Pr, Pi = fused(x, y, win, nnyquist, norm, **kw)
+    sc = _onesided_power_scale(nfft, nnyquist).astype(np.float32)
+    return dict(Pxx=(_np(Pxx) * sc).astype(np.complex128),
+                Pyy=(_np(Pyy) * sc).T.astype(np.complex128),
+                Pxy=(_np(Pr) * sc + 1j * (_np(Pi) * sc)).T, **_NO_SEGMENTS)
 
 
 def _run_welch_core(x_in, y_in, win, s1sq_enbw, *, backend, **static):
@@ -503,7 +537,8 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
 
     ``sigx``/``sigy`` are tensors (computed on their device) or arrays
     (computed on ``device``; see the module docstring).  ``fft_backend``:
-    None/'auto' or 'xla'/'mxu' (``torch.fft``), or 'pallas' (kernel B).
+    None/'auto' or 'xla'/'mxu' (``torch.fft``), or 'pallas' (kernel B where
+    its gate holds, else kernel E, else ``torch.fft``: :func:`pallas_route`).
     ``mesh`` is not supported yet: the mesh tier is ROADMAP Queue 1
     item 11 (``torch.distributed``).
 
@@ -534,11 +569,12 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
         tbounds = [tvec[0], tvec[-1]]
 
     dev = _device(device, sigx, sigy)
-    sigx = _tensor(sigx, dev)
-    if sigy is None:
-        # auto-spectra shorthand (reference fft_analysis.py:1714)
-        sigy = sigx
-    sigy = _tensor(sigy, dev)
+    with stage("fft_pwelch.h2d", log=False):
+        sigx = _tensor(sigx, dev)
+        if sigy is None:
+            # auto-spectra shorthand (reference fft_analysis.py:1714)
+            sigy = sigx
+        sigy = _tensor(sigy, dev)
     if onesided is None:
         onesided = not (sigx.is_complex() or sigy.is_complex())
 
@@ -666,9 +702,11 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
             print("using the batched device Welch pipeline "
                   f"({resolve_fft_backend(fft_backend)} transform path "
                   f"on {dev})")
-        out = _run_welch_core(x_in, y_in, win, fftinfo.S1 ** 2 * fftinfo.ENBW,
-                              backend=resolve_fft_backend(fft_backend),
-                              **static)
+        with stage("fft_pwelch.device_core", log=False):
+            out = _run_welch_core(x_in, y_in, win,
+                                  fftinfo.S1 ** 2 * fftinfo.ENBW,
+                                  backend=resolve_fft_backend(fft_backend),
+                                  **static)
 
         freq = np.fft.fftfreq(nfft, 1.0 / Fs)
         freq = freq[:Nnyquist] if onesided else np.fft.fftshift(freq)

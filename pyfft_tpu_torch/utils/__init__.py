@@ -2,6 +2,7 @@
 
 from .structure import Struct
 from .detrend import detrend_none, detrend_mean, detrend_linear, detrend_func
+from . import profiling
 from .interp import (
     interp,
     trapz_var,
@@ -12,6 +13,7 @@ from .interp import (
 )
 
 __all__ = [
+    "profiling",
     "Struct",
     "detrend_none",
     "detrend_mean",

@@ -1,4 +1,4 @@
-"""Kernels A, B, C and D on a CUDA card against their plain versions.
+"""Kernels A to G on a CUDA card against their plain versions.
 
 Runs only where there is a card (each test skips elsewhere, deciding in
 the ``cuda_device`` fixture).  It imports neither JAX nor the JAX package,
@@ -18,8 +18,11 @@ from pyfft_tpu_torch import segmentation as pseg
 from pyfft_tpu_torch.hilbert import _analytic_factored, envelope_phase
 from pyfft_tpu_torch.ops import fir as pfir
 from pyfft_tpu_torch.ops import hilbert as phk
+from pyfft_tpu_torch.ops import probe as pprobe
 from pyfft_tpu_torch.ops import stft as pst
 from pyfft_tpu_torch.ops import welch as pw
+from pyfft_tpu_torch.ops import welch_v1 as pv
+from pyfft_tpu_torch.utils import profiling as pprof
 
 
 @pytest.fixture
@@ -259,3 +262,149 @@ def test_blocked_iir_on_card_matches_cpu(cuda_device):
     got = pt.filters.downsample_efficient(x.T, 1e6, 5e4, device=cuda_device)
     want = pt.filters.downsample_efficient(x.T, 1e6, 5e4, device="cpu")
     assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,nt,nwins,hop,detrend", [
+    (3, 60000, 1964, 982, 1),       # the heat-pulse test set's geometry
+    (6, 400000, 4871, 2435, 1),     # the full-size heat-pulse geometry
+    (2, 1 << 16, 4096, 2048, -1),   # radix-2, linear detrend
+    (0, 5000, 301, 150, -1),        # no channels, odd nwins
+    (1, 3000, 3, 1, 0),             # shortest Bluestein length
+    (4, 20000, 8191, 3000, 1),      # longest (M = 16384)
+    (2, 5000, 1, 1, 0),             # one-sample segments
+])
+def test_welch_dft_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins,
+                                                hop, detrend):
+    """Kernel E vs its plain version in float64 on the card: max |diff| /
+    max |ref| <= 2e-5 per output (float32 Bluestein FFTs of up to 16384
+    points, float64 sums)."""
+    rng = np.random.default_rng(nt + nwins)
+    t = np.arange(nt)
+    xt = torch.as_tensor(rng.standard_normal(nt) + 0.3 + 1e-5 * t,
+                         dtype=torch.float32, device=cuda_device)
+    yt = torch.as_tensor(rng.standard_normal((nch, nt)) - 2e-5 * t,
+                         dtype=torch.float32, device=cuda_device)
+    navr = (nt - nwins) // hop + 1
+    nf = nwins // 2 + 1
+    win = np.hanning(nwins + 1)[:-1] if nwins > 1 else np.ones(1)
+    kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=detrend)
+    before = pv.LAUNCHES
+    got = pv.welch_dft_cuda(xt, yt, win, nf, 1.0 / navr, **kw)
+    torch.cuda.synchronize()
+    assert pv.LAUNCHES == before + 1
+    ref = pv.welch_dft_plain(xt.double(), yt.double(), win, nf, 1.0 / navr,
+                             **kw)
+    # Pxy as one complex array (its imaginary part is 0 for nwins = 1)
+    got = (got[0], got[1], torch.complex(got[2], got[3]))
+    ref = (ref[0], ref[1], torch.complex(ref[2], ref[3]))
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        if r.numel():
+            err = ((g.to(r.dtype) - r).abs().max() / r.abs().max()).item()
+            assert err <= 2e-5
+
+
+@pytest.mark.cuda
+def test_welch_dft_kernel_raises_outside_its_domain_on_card(cuda_device):
+    x = torch.ones(20000, device=cuda_device)
+    y = torch.ones(2, 20000, device=cuda_device)
+    kw = dict(navr=3, hop=100, detrend_style=1)
+    with pytest.raises(ValueError, match="float32"):
+        pv.welch_dft_cuda(x.double(), y.double(), np.ones(300), 151, 1.0,
+                          nwins=300, **kw)
+    with pytest.raises(ValueError, match="geometry"):
+        pv.welch_dft_cuda(x, y, np.ones(8193), 100, 1.0, nwins=8193, **kw)
+    with pytest.raises(ValueError, match="geometry"):
+        pv.welch_dft_cuda(x, y, np.ones(300), 200, 1.0, nwins=300, **kw)
+    with pytest.raises(ValueError, match="do not fit"):
+        pv.welch_dft_cuda(x, y, np.ones(300), 151, 1.0, nwins=300,
+                          navr=300, hop=100)
+
+
+@pytest.mark.cuda
+def test_fft_pwelch_pallas_takes_kernel_e_on_card(cuda_device):
+    """fft_pwelch('pallas') at nwins = 1820 and with linear detrend at a
+    radix-2 nwins launches kernel E once (kernel B never) and agrees with
+    the torch.fft core on the card."""
+    rng = np.random.default_rng(1)
+    N = 1 << 13
+    t = np.arange(N) / 1e3
+    x = np.sin(2 * np.pi * 97.0 * t) + 0.1 * rng.standard_normal(N)
+    y = np.stack([np.sin(2 * np.pi * 97.0 * t - 0.5), 0.3 * t]) \
+        + 0.1 * rng.standard_normal((2, N))
+    for args in (dict(Navr=8, detrend_style=1),
+                 dict(tper=1024.5 / 1e3, detrend_style=-1)):
+        kw = dict(tbounds=[t[1], t[-2]], plotit=False, **args)
+        b0, e0 = pw.LAUNCHES, pv.LAUNCHES
+        P = pt.fft_pwelch(t, x, y, fft_backend="pallas", **kw)
+        assert pv.LAUNCHES == e0 + 1 and pw.LAUNCHES == b0
+        X = pt.fft_pwelch(t, x, y, fft_backend="xla", **kw)
+        for k in (1, 2, 3):
+            assert np.abs(P[k] - X[k]).max() <= 2e-5 * np.abs(X[k]).max()
+
+
+@pytest.mark.cuda
+def test_heatpulse_pallas_launches_kernel_e_once_on_card(cuda_device):
+    """HeatPulseFFT on its test set on the card: one launch of kernel
+    E, none of kernel B; Amp, Phase and Coh agree with the CPU run of the
+    same route to 1e-5 (float32 kernel against float32 plain version)."""
+    from pyfft_tpu_torch import heatpulse as php
+    data = php.synth_heatpulse_data(nch=6, fmod=33.0, fs=16.0e3, T=4.0)
+    runinfo = dict(fmod=33.0, harms=np.asarray([1, 2]), intno2per=2,
+                   overlap=0.5, winfun="hanning", fwid=8.0,
+                   tbounds=np.asarray([0.25, 3.75]), DutyCycle=0.5)
+    b0, e0 = pw.LAUNCHES, pv.LAUNCHES
+    card = php.HeatPulseFFT(dict(runinfo), dict(data))
+    card.PreCheck()
+    card.run(fft_backend="pallas")
+    assert pv.LAUNCHES == e0 + 1 and pw.LAUNCHES == b0
+    cpu = php.HeatPulseFFT(dict(runinfo, device="cpu"), dict(data))
+    cpu.PreCheck()
+    cpu.run(fft_backend="pallas")
+    for f in ("Amp", "Phase", "Coh"):
+        u, v = getattr(card, f), getattr(cpu, f)
+        assert np.abs(u - v).max() <= 1e-5 * np.abs(v).max(), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows,N,rows_blk", [(4096, 1152, 512),
+                                              (1024, 100, 256),
+                                              (2048, 4, 1024)])
+def test_probe_kernels_match_plain_on_card(cuda_device, nrows, N, rows_blk):
+    """Kernel F vs float32 column sums (1e-5 * max|ref|) and kernel G vs
+    its plain version (1e-4 * max|ref|; a chain without the bf16
+    re-rounding between passes misses it by more than 1e-3, as
+    ``tests/test_torch_profiling.py`` shows at these inputs), streamed and
+    resident."""
+    rng = np.random.default_rng(N)
+    x = torch.as_tensor(rng.standard_normal((nrows, N)),
+                        dtype=torch.float32, device=cuda_device)
+    T = torch.as_tensor(rng.standard_normal((128, 128)) / 16.0,
+                        device=cuda_device).to(torch.bfloat16)
+    if N % 4 == 0:
+        c0 = pprobe.LAUNCHES["colsum"]
+        got = pprobe.colsum(x, rows_blk)
+        torch.cuda.synchronize()
+        assert pprobe.LAUNCHES["colsum"] == c0 + 1
+        ref = pprobe.colsum_plain(x.double(), rows_blk)
+        assert ((got.double() - ref).abs().max()
+                / ref.abs().max()).item() <= 1e-5
+    else:
+        with pytest.raises(ValueError):
+            pprobe.colsum(x, rows_blk)
+    for passes, resident in ((0, False), (12, False), (3, True)):
+        g0 = pprobe.LAUNCHES["chain"]
+        got = pprobe.chain(x, T, rows_blk, passes, resident)
+        torch.cuda.synchronize()
+        assert pprobe.LAUNCHES["chain"] == g0 + 1
+        ref = pprobe.chain_plain(x, T, rows_blk, passes, resident)
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_measure_pipeline_overlap_on_card(cuda_device):
+    out = pprof.measure_pipeline_overlap(nrows=8192, N=1152, iters=2)
+    assert all(np.isfinite(v) and v > 0 for k, v in out.items()
+               if k != "overlap_fraction")
+    assert out["read_gbs"] <= 1.05 * pprof.device_peaks()[2]

@@ -151,12 +151,21 @@ def test_lazy_fill_runs_once_and_explains_missing_fields():
 
 
 def test_pallas_falls_back_to_xla_outside_kernel_domain():
-    """nwins 1820 is not a power of two: the 'pallas' path takes the
-    torch.fft core (per-segment arrays present) and equals 'xla'."""
+    """nwins 6000 is outside kernel B's gate (not a power of two) and
+    outside TPU kernel #7's (over 5452 samples), where the JAX package too
+    takes 'mxu': the 'pallas' path takes the torch.fft core (per-segment
+    arrays present) and equals 'xla'.  (nwins 1820, inside #7's gate, takes
+    kernel E: tests/test_torch_welch_v1.py.)"""
     t, x, y = _signals()
-    kw = dict(tbounds=[t[1], t[-2]], Navr=8, plotit=False, device="cpu")
+    kw = dict(tbounds=[t[1], t[-2]], tper=6000.5 / 1e3, plotit=False,
+              device="cpu")
     rp = pt.fft_pwelch(t, x, y, fft_backend="pallas", **kw)
     rx = pt.fft_pwelch(t, x, y, fft_backend="xla", **kw)
+    assert rp[6].nwins == 6000
+    assert psp.pallas_route(nwins=6000, noverlap=rp[6].noverlap,
+                            navr=rp[6].Navr, nnyquist=rp[6].Nnyquist,
+                            onesided=True, detrend_style=1, ntmodel=False,
+                            is_cplx=False) is None
     assert "Pxx_seg" in rp[6].__dict__
     _compare(rp, rx, rtol=0, floor=0)
 
