@@ -25,7 +25,20 @@ paths, then drives the main paths:
   not a power of two, so kernel E takes the Welch stage;
 - the profiling tier: kernels F and G against their plain versions, then
   ``utils.profiling.measure_pipeline_overlap`` at its default size
-  (phase 13).
+  (phase 13);
+- bench configuration 1, the single-signal PSD of a 2**24-sample signal
+  with nwins = 4096 and 50% overlap, through ``ops.welch_auto_packed``
+  (kernel H, kernel B's packed mode: two segments per complex FFT), timed
+  against kernel B at nch = 0 and the plain version over 25 runs each and
+  traced once under ``torch.profiler`` (phase 14); then the ``PYFFT_PACKED=1``
+  route of ``welch_cross_spectra`` on one real pair (kernel H in its pair
+  mode, phase 15);
+- kernel B at two geometries where the JAX package runs its v2 kernel
+  (phase 16: nwins 2048 every 128 samples with the 129-tap band-pass,
+  through ``welch_filtered_cross_spectra``; nwins 16384, 50% overlap);
+- the FIR-transpose feeder ``ops.fir_transpose_pallas`` (kernel I) on the
+  config-0 signals into the interleaved layout with a zero tail (phase
+  17).
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
@@ -56,7 +69,11 @@ FS = 1e6
 NCH = 8
 SEED = 0
 FIR_TOL = 1e-5      # kernel A: max |kernel - plain| / max |plain|
-WELCH_TOL = 2e-5    # kernel B: the same, per output
+WELCH_TOL = 2e-5    # kernels B and H: the same, per output
+FIR_T_TOL = 1e-5    # kernel I: the same
+PARSEVAL_TOL = 0.01  # config 1: |sum(Pxx) df / var(x) - 1|
+LAG_PHASE_TOL = 1e-2  # the pair route: cross-phase at the line vs the lag
+LAG = 3             # the pair route: y is x delayed by LAG samples
 STFT_TOL = 2e-5     # kernel C: the same, per case
 HILB_TOL = 1e-5     # kernel D: the same, on its rows and on the analytic signal
 PHASE_TOL = 1e-4    # config 4: wrapped phase (rad) where env > 1e-2 max
@@ -111,8 +128,8 @@ def chain_unrounded(x, T, rows_blk, passes):
     return y.sum(dim=(0, 1)).reshape(1, -1)
 
 
-def time_ms(fn, reps=5):
-    """Median of `reps` timed runs after one warm-up, by CUDA events."""
+def time_runs(fn, reps=5):
+    """`reps` timed runs after one warm-up, by CUDA events (ms)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -125,7 +142,20 @@ def time_ms(fn, reps=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, reps=5):
+    """Median of `reps` timed runs after one warm-up, by CUDA events."""
+    return statistics.median(time_runs(fn, reps))
+
+
+def smi_query(fields):
+    """``nvidia-smi --query-gpu=<fields>`` of card 0, as one string."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader",
+         "-i", "0"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
 
 
 def signals(nt, dev):
@@ -257,7 +287,8 @@ def main():
     import pyfft_tpu_torch as pt
     from pyfft_tpu_torch import segmentation as seg
     from pyfft_tpu_torch.hilbert import _analytic_factored
-    from pyfft_tpu_torch.ops import _build, fir, probe, stft, welch, welch_v1
+    from pyfft_tpu_torch.ops import (_build, fir, probe, stft, welch,
+                                     welch_packed, welch_v1)
     from pyfft_tpu_torch.ops import hilbert as hk
     from pyfft_tpu_torch.utils import profiling
     check(Path(pt.__file__).resolve().parent == HERE / "pyfft_tpu_torch",
@@ -273,7 +304,7 @@ def main():
     def reset_counts():
         """Every kernel's launch count to 0, before a main path."""
         fir.LAUNCHES = welch.LAUNCHES = stft.LAUNCHES = hk.LAUNCHES = 0
-        welch_v1.LAUNCHES = 0
+        welch_v1.LAUNCHES = welch.PACKED_LAUNCHES = fir.FIR_T_LAUNCHES = 0
         probe.LAUNCHES.update(colsum=0, chain=0)
 
     def bound(flops, nbytes, unit="fp32"):
@@ -956,12 +987,348 @@ def main():
     check(all(np.isfinite(v) for v in ov.values()),
           "non-finite overlap measurement")
 
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: config 1, kernel H against B at nch = 0 and plain ----- #
+    nt1 = 1 << 24
+    x1 = x0[:nt1]
+    plan1 = seg.plan_segments(nt1, nwins=4096, windowoverlap=0.5)
+    win1 = np.hanning(4097)[:-1]
+    s1 = seg.get_s1(win1)
+    norm1 = 1.0 / (s1 ** 2 * seg.get_enbw(FS, s1, seg.get_s2(win1))
+                   * plan1.navr)
+    check(welch_packed.packed_parts_geometry(plan1.navr, 4096, plan1.noverlap)
+          is not None, "config 1 outside the packed entry's domain")
+    none1 = x1.new_empty((0, nt1))
+    for taps in (None, taps0):
+        kw = dict(navr=plan1.navr, nwins=4096, noverlap=plan1.noverlap,
+                  taps=taps, detrend_style=1)
+        kwh = dict(kw, hop=plan1.hop)
+        del kwh["noverlap"]
+
+        def packed():
+            return welch_packed.welch_auto_packed(x1, win1, plan1.nnyquist,
+                                                  norm1, **kw)
+
+        def plain():
+            return welch.welch_plain(x1, none1, win1, plan1.nnyquist, norm1,
+                                     **kwh)[0]
+
+        def kernel_b():
+            return welch.welch_fir_pallas_fused(x1, none1, win1,
+                                                plan1.nnyquist, norm1, **kw)
+
+        err, scale = rel_err(packed(), plain())
+        err_b = rel_err(kernel_b()[0], plain())[0]
+        # 25 runs each (5 in earlier rounds, where H and B moved by a
+        # quarter between two calls), and the spread
+        spread = {}
+        for what, fn in (("ms", packed), ("plain_ms", plain),
+                         ("kernel_b_nch0_ms", kernel_b)):
+            spread[what] = time_runs(fn, 25)
+        ms, plain_ms, b_ms = (statistics.median(spread[k]) for k in
+                              ("ms", "plain_ms", "kernel_b_nch0_ms"))
+        ntaps = 0 if taps is None else len(taps)
+        b14 = bound((0 if taps is None else fir_ops(nt1, ntaps, 1))
+                    + profiling.welch_packed_flops(plan1.navr, 4096),
+                    4.0 * (nt1 + plan1.nnyquist))
+        emit("welch_packed_vs_plain", config=1, nt=nt1, nwins=4096,
+             navr=plan1.navr, ntaps=ntaps, rel_err=err,
+             max_abs_err=err * scale, rel_err_kernel_b=err_b, tol=WELCH_TOL,
+             ms=ms, plain_ms=plain_ms, kernel_b_nch0_ms=b_ms,
+             quartiles_ms={k: statistics.quantiles(v, n=4)
+                           for k, v in spread.items()},
+             clocks=smi_query("clocks.sm,clocks.max.sm,power.draw,"
+                              "temperature.gpu"), **b14)
+        check(err <= WELCH_TOL, f"kernel H config 1 K={ntaps}: rel err {err}")
+        check(err_b <= WELCH_TOL, f"kernel B nch=0 K={ntaps}: rel err {err_b}")
+        if taps is None:
+            kernels["welch_packed"] = dict(max_abs_err=err * scale, ms=ms,
+                                           plain_ms=plain_ms,
+                                           library_ms=None, **b14)
+        # one traced call of each: its wall, the device's busy time by
+        # kernel or copy, and the share of the wall the device was idle
+        cuda_t = torch.autograd.DeviceType.CUDA
+        prof14 = {}
+        for what, fn in (("kernel_h", packed), ("kernel_b_nch0", kernel_b),
+                         ("plain", plain)):
+            with tempfile.TemporaryDirectory() as logdir, \
+                    profiling.trace(logdir) as tr:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            dev_ms = {e.key: e.self_device_time_total / 1e3
+                      for e in tr.key_averages()
+                      if e.device_type == cuda_t
+                      and not getattr(e, "is_user_annotation", False)}
+            busy = sum(dev_ms.values())
+            prof14[what] = dict(
+                wall_ms=wall, device_busy_ms=busy,
+                device_idle_share=1 - busy / wall,
+                welch_kernel_ms=sum(v for k, v in dev_ms.items()
+                                    if "welch_kernel" in k),
+                top_device_ms=dict(sorted(dev_ms.items(),
+                                          key=lambda kv: -kv[1])[:6]))
+        emit("welch_packed_profile", config=1, ntaps=ntaps, **prof14)
+        check(prof14["kernel_h"]["welch_kernel_ms"] > 0
+              and prof14["kernel_b_nch0"]["welch_kernel_ms"] > 0,
+              "the profiler saw no welch_kernel")
+
+    # ---- sixth main path: config 1 through welch_auto_packed ------------ #
+    reset_counts()
+    t0 = time.perf_counter()
+    Pxx1 = welch_packed.welch_auto_packed(
+        x1, win1, plan1.nnyquist, norm1, navr=plan1.navr, nwins=4096,
+        noverlap=plan1.noverlap, detrend_style=1).cpu().numpy()
+    wall1 = time.perf_counter() - t0
+    check(welch.PACKED_LAUNCHES == 1 and welch.LAUNCHES == 0,
+          f"config 1 launched kernel H {welch.PACKED_LAUNCHES} times and "
+          f"kernel B {welch.LAUNCHES} times")
+    launches["welch_packed"] = welch.PACKED_LAUNCHES
+    psd1 = Pxx1 * np.where((np.arange(plan1.nnyquist) > 0)
+                           & (np.arange(plan1.nnyquist) < 2048), 2.0, 1.0)
+    df1 = FS / 4096
+    f_pk1 = float(np.argmax(psd1) * df1)
+    var1 = float(x1.double().var().item())
+    parseval = float(psd1.sum() * df1 / var1)
+    emit("main_config1", nt=nt1, nwins=4096, navr=plan1.navr,
+         peak_hz=f_pk1, sum_psd_df_over_var=parseval, tol=PARSEVAL_TOL,
+         wall_s=wall1)
+    check(np.all(np.isfinite(psd1)), "non-finite config-1 PSD")
+    check(abs(f_pk1 - 97e3) <= df1, f"config 1 peak at {f_pk1} Hz")
+    check(abs(parseval - 1) <= PARSEVAL_TOL,
+          f"config 1 sum(Pxx) df / var(x) = {parseval}")
+
+    # ---- phase 15: the PYFFT_PACKED route on one real pair --------------- #
+    import os
+    from pyfft_tpu_torch.spectral import pallas_route
+    xp15 = x0[:nt1 + LAG]
+    x15 = xp15[LAG:].contiguous()
+    y15 = xp15[:nt1] + 0.1 * torch.as_tensor(
+        np.random.default_rng(SEED + 6).standard_normal(nt1),
+        dtype=torch.float32, device=dev)
+    hop15 = plan1.hop
+
+    def pair_kernel():
+        return welch.welch_cuda(x15, y15[None], win1, plan1.nnyquist, norm1,
+                                navr=plan1.navr, nwins=4096, hop=hop15,
+                                detrend_style=1, packed=True)
+
+    def pair_plain():
+        return welch.welch_plain(x15, y15[None], win1, plan1.nnyquist, norm1,
+                                 navr=plan1.navr, nwins=4096, hop=hop15,
+                                 detrend_style=1)
+
+    def pair_b():
+        return welch.welch_cuda(x15, y15[None], win1, plan1.nnyquist, norm1,
+                                navr=plan1.navr, nwins=4096, hop=hop15,
+                                detrend_style=1)
+
+    got, ref = pair_kernel(), pair_plain()
+    errs15 = {"Pxx": rel_err(got[0], ref[0]), "Pyy": rel_err(got[1], ref[1]),
+              "Pxy": rel_err(torch.complex(got[2], got[3]),
+                             torch.complex(ref[2], ref[3]))}
+    del got, ref
+    ms15, plain15, b15 = (time_ms(pair_kernel), time_ms(pair_plain),
+                          time_ms(pair_b))
+    emit("welch_packed_pair_vs_plain", nt=nt1, nwins=4096, navr=plan1.navr,
+         rel_err={k: e for k, (e, _) in errs15.items()}, tol=WELCH_TOL,
+         ms=ms15, plain_ms=plain15, kernel_b_nch1_ms=b15,
+         **bound(profiling.welch_packed_flops(plan1.navr, 4096, pair=True),
+                 8.0 * nt1 + 16.0 * plan1.nnyquist))
+    for k, (e, _) in errs15.items():
+        check(e <= WELCH_TOL, f"kernel H pair {k}: rel err {e}")
+
+    # ---- seventh main path: welch_cross_spectra with PYFFT_PACKED=1 ------ #
+    reset_counts()
+    before_env = os.environ.get("PYFFT_PACKED")
+    os.environ["PYFFT_PACKED"] = "1"
+    try:
+        route = pallas_route(nwins=4096, noverlap=plan1.noverlap,
+                             navr=plan1.navr, nnyquist=plan1.nnyquist,
+                             onesided=True, detrend_style=1, ntmodel=False,
+                             is_cplx=False, nch=1)
+        t0 = time.perf_counter()
+        out15 = pt.welch_cross_spectra(x15, y15, win1, plan1, FS,
+                                       fft_backend="pallas")
+        wall_h = time.perf_counter() - t0
+    finally:
+        if before_env is None:
+            del os.environ["PYFFT_PACKED"]
+        else:
+            os.environ["PYFFT_PACKED"] = before_env
+    check(route == "H", f"pallas_route gave {route!r} with PYFFT_PACKED=1")
+    check(welch.PACKED_LAUNCHES == 1 and welch.LAUNCHES == 0,
+          f"the PYFFT_PACKED route launched kernel H {welch.PACKED_LAUNCHES}"
+          f" times and kernel B {welch.LAUNCHES} times")
+    launches["welch_packed"] += welch.PACKED_LAUNCHES
+    t0 = time.perf_counter()
+    ref15 = pt.welch_cross_spectra(x15, y15, win1, plan1, FS,
+                                   fft_backend="pallas")
+    wall_b = time.perf_counter() - t0
+    check(welch.LAUNCHES == 1, "without PYFFT_PACKED the pair took no B")
+    errs15r = {k: rel_err(out15[k], ref15[k])[0]
+               for k in ("Pxx", "Pyy", "Pxy")}
+    f15 = out15["freq"]
+    ik = int(np.argmax(np.abs(out15["Pxy"][:, 0])))
+    coh15 = float(np.abs(out15["Pxy"][ik, 0]) ** 2
+                  / (np.abs(out15["Pxx"][ik]) * np.abs(out15["Pyy"][ik, 0])))
+    phi15 = float(np.angle(out15["Pxy"][ik, 0]))
+    phi_want = -2 * np.pi * 97e3 * LAG / FS
+    dphi15 = float(abs(np.angle(np.exp(1j * (phi15 - phi_want)))))
+    emit("main_pair_route", nt=nt1, nwins=4096, navr=plan1.navr, route=route,
+         peak_hz=float(f15[ik]), coh2_at_peak=coh15, phase_at_peak=phi15,
+         phase_want=phi_want, phase_tol=LAG_PHASE_TOL,
+         rel_err_vs_kernel_b=errs15r, tol=WELCH_TOL, wall_s_route_h=wall_h,
+         wall_s_route_b=wall_b)
+    for k, e in errs15r.items():
+        check(e <= WELCH_TOL, f"pair route {k}: H vs B {e}")
+    check(abs(f15[ik] - 97e3) <= FS / 4096, f"pair peak at {f15[ik]} Hz")
+    check(coh15 > 0.9, f"pair |Cxy|^2 at the line {coh15}")
+    check(dphi15 <= LAG_PHASE_TOL, f"pair phase {phi15} vs {phi_want}")
+    del x15, y15, xp15, out15, ref15, x1, none1
+    torch.cuda.empty_cache()
+
+    # ---- phase 16: kernel B at the JAX package's v2-only geometries ------ #
+    # (its v2 gate holds at both, tests/test_torch_welch_v2.py; its v3 gate
+    # fails, checked below)
+    nt16a = 1 << 22
+    cases16 = (("a_2048_every_128", x0[:nt16a], y0[:, :nt16a], 2048, 1920,
+                taps0),
+               ("b_16384_every_8192", x0[:nt1], y0[:, :nt1], 16384, 8192,
+                None))
+    for name, x, y, nwins, nov, taps in cases16:
+        nt = x.shape[0]
+        hop = nwins - nov
+        navr = (nt - nwins) // hop + 1
+        check(welch_packed._v3_geometry(nwins, nov, NCH) is None,
+              f"{name} is a v3 geometry")
+        win = np.hanning(nwins + 1)[:-1]
+        nf = nwins // 2 + 1
+        kw = dict(navr=navr, nwins=nwins, hop=hop, taps=taps,
+                  detrend_style=1)
+        got = welch.welch_cuda(x, y, win, nf, 1.0 / navr, **kw)
+        ref = welch.welch_plain(x, y, win, nf, 1.0 / navr, **kw)
+        errs = {"Pxx": rel_err(got[0], ref[0]),
+                "Pyy": rel_err(got[1], ref[1]),
+                "Pxy": rel_err(torch.complex(got[2], got[3]),
+                               torch.complex(ref[2], ref[3]))}
+        del got, ref
+        ms = time_ms(lambda: welch.welch_cuda(x, y, win, nf, 1.0 / navr,
+                                              **kw))
+        plain_ms = time_ms(lambda: welch.welch_plain(x, y, win, nf,
+                                                     1.0 / navr, **kw))
+        max_abs = max(e * sc for e, sc in errs.values())
+        nsig = 1 + y.shape[0]
+        ntaps = 0 if taps is None else len(taps)
+        b16 = bound((fir_ops(nt, ntaps, nsig) if ntaps else 0)
+                    + profiling.welch_flops(navr, nwins, NCH),
+                    4.0 * nsig * (nt + 3 * nf))
+        emit("welch_v2_vs_plain", case=name, nch=NCH, nt=nt, nwins=nwins,
+             noverlap=nov, navr=navr, ntaps=ntaps,
+             rel_err={k: e for k, (e, _) in errs.items()},
+             max_abs_err=max_abs, tol=WELCH_TOL, ms=ms, plain_ms=plain_ms,
+             **b16)
+        for k, (e, _) in errs.items():
+            check(e <= WELCH_TOL, f"kernel B {name} {k}: rel err {e}")
+        if name.startswith("a_"):
+            kernels["welch_v2"] = dict(max_abs_err=max_abs, ms=ms,
+                                       plain_ms=plain_ms, library_ms=None,
+                                       **b16)
+    del cases16, x, y
+    torch.cuda.empty_cache()
+
+    # ---- eighth main path: a v2 geometry through the fused chain --------- #
+    reset_counts()
+    plan16 = seg.plan_segments(nt16a, nwins=2048, windowoverlap=0.9375)
+    check(plan16.noverlap == 1920, f"noverlap {plan16.noverlap}")
+    win16 = np.hanning(2049)[:-1]
+    t0 = time.perf_counter()
+    out16 = pt.welch_filtered_cross_spectra(x0[:nt16a], y0[:, :nt16a], taps0,
+                                            win16, plan16, FS)
+    wall16 = time.perf_counter() - t0
+    check(welch.LAUNCHES == 1 and fir.LAUNCHES == 0,
+          f"the v2 geometry launched kernel B {welch.LAUNCHES} times, "
+          f"kernel A {fir.LAUNCHES} times")
+    launches["welch_v2"] = welch.LAUNCHES
+    ipk16 = np.argmax(np.abs(out16["Pyy"]), axis=0)
+    fpk16 = out16["freq"][ipk16]
+    coh16 = (np.abs(out16["Pxy"][ipk16, np.arange(NCH)]) ** 2
+             / (np.abs(out16["Pxx"][ipk16])
+                * np.abs(out16["Pyy"][ipk16, np.arange(NCH)])))
+    emit("main_v2_geometry", nt=nt16a, nch=NCH, nwins=2048, noverlap=1920,
+         navr=plan16.navr, ntaps=len(taps0), peak_hz=fpk16.tolist(),
+         coh2_at_peak=coh16.tolist(), wall_s=wall16)
+    check(np.all(np.isfinite(out16["Pyy"])) and np.all(np.isfinite(
+        out16["Pxy"])), "non-finite v2-geometry spectra")
+    check(np.all(np.abs(fpk16 - 97e3) <= FS / 2048), f"Pyy peaks at {fpk16}")
+    check(np.all(coh16 > 0.9), f"|Cxy|^2 at the peak {coh16}")
+    del out16
+
+    # ---- phase 17: kernel I, the FIR-transpose feeder -------------------- #
+    nrows17 = (1 << 18) + 512
+    nr17 = nt0 // 128
+    C17 = NCH + 1
+    sub17 = welch._means(x0, y0, np.asarray(taps0, np.float64), 1,
+                         False).repeat_interleave(128)[None]
+    got = fir.fir_t_cuda(x0, y0, taps0, nrows17, sub17)
+    ref = fir.fir_transpose_plain(x0, y0, taps0, nrows17, sub17)
+    err17, scale17 = rel_err(got, ref)
+    tail17 = int(torch.count_nonzero(got[nr17:]).item())
+    del got, ref
+    torch.cuda.empty_cache()
+    ms17 = time_ms(lambda: fir.fir_t_cuda(x0, y0, taps0, nrows17, sub17))
+    plain17 = time_ms(lambda: fir.fir_transpose_plain(x0, y0, taps0, nrows17,
+                                                      sub17))
+    b17 = bound(fir_ops(nt0, len(taps0), C17),
+                4.0 * C17 * nt0 + 4.0 * nrows17 * C17 * 128)
+    emit("fir_t_vs_plain", nt=nt0, C=C17, K=len(taps0), nrows_out=nrows17,
+         rel_err=err17, max_abs_err=err17 * scale17, tol=FIR_T_TOL,
+         tail_nonzero=tail17, ms=ms17, plain_ms=plain17, **b17)
+    check(err17 <= FIR_T_TOL, f"kernel I: rel err {err17} > {FIR_T_TOL}")
+    check(tail17 == 0, f"kernel I: {tail17} non-zero values past the signal")
+    kernels["fir_t"] = dict(max_abs_err=err17 * scale17, ms=ms17,
+                            plain_ms=plain17, library_ms=None, **b17)
+
+    # ---- ninth main path: fir_transpose_pallas --------------------------- #
+    reset_counts()
+    t0 = time.perf_counter()
+    out17 = fir.fir_transpose_pallas(x0, y0, taps0, nrows17, sub_row=sub17)
+    torch.cuda.synchronize()
+    wall17 = time.perf_counter() - t0
+    check(fir.FIR_T_LAUNCHES == 1 and fir.LAUNCHES == 0,
+          f"fir_transpose_pallas launched kernel I {fir.FIR_T_LAUNCHES} "
+          f"times and kernel A {fir.LAUNCHES} times")
+    launches["fir_t"] = fir.FIR_T_LAUNCHES
+    # each channel's signal rows average to 0 once the filtered means are
+    # subtracted; the tail is exactly zero
+    row_means = out17[:nr17].double().mean(0).reshape(C17, 128).mean(-1)
+    mean_dev = float(row_means.abs().max().item())
+    tail_main = int(torch.count_nonzero(out17[nr17:]).item())
+    emit("main_fir_transpose", nt=nt0, C=C17, nrows_out=nrows17,
+         max_abs_channel_mean=mean_dev, tail_nonzero=tail_main,
+         finite=bool(torch.isfinite(out17).all().item()), wall_s=wall17)
+    check(bool(torch.isfinite(out17).all().item()), "non-finite kernel I "
+          "output")
+    check(tail_main == 0 and mean_dev <= 1e-5,
+          f"kernel I: tail {tail_main} non-zero, channel means {mean_dev}")
+    del out17, sub17
+    torch.cuda.empty_cache()
+
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
     source = {"fir": ("pyfft_tpu_torch/csrc/fir.cu",
                       "pyfft_tpu/ops/pallas_fir.py:150"),
               "welch": ("pyfft_tpu_torch/csrc/welch.cu",
                         "pyfft_tpu/ops/pallas_welch3.py:455"),
+              "welch_v2": ("pyfft_tpu_torch/csrc/welch.cu",
+                           "pyfft_tpu/ops/pallas_welch.py:447"),
+              "welch_packed": ("pyfft_tpu_torch/csrc/welch.cu",
+                               "pyfft_tpu/ops/pallas_welch3.py:455"),
+              "fir_t": ("pyfft_tpu_torch/csrc/fir.cu",
+                        "pyfft_tpu/ops/pallas_fir.py:451"),
               "stft": ("pyfft_tpu_torch/csrc/stft.cu",
                        "pyfft_tpu/ops/pallas_welch3.py:1139"),
               "hilbert": ("pyfft_tpu_torch/csrc/hilbert.cu",

@@ -12,7 +12,11 @@ and the analysis tier around it: the rest of ``filters``, ``notch``,
 ``deriv``, ``laplace``, ``ccf``, ``doppler``, ``pca``, ``dft``,
 ``crosscheck`` and the ``fft_analysis`` facade.  The fourth is the
 heat-pulse transport analysis (``heatpulse``, ``HeatPulseFFT``) with Welch
-at any segment length, and ``utils.profiling`` with its two probes.
+at any segment length, and ``utils.profiling`` with its two probes.  The
+fifth ports the last TPU kernels: the packed Welch of one signal or one
+pair (``ops.welch_auto_packed``, ``ops.welch_pair_packed`` and the
+``PYFFT_PACKED=1`` route), the FIR-transpose feeder
+(``ops.fir_transpose_pallas``), and the v2 geometries on kernel B.
 
 Map from the JAX package:
 
@@ -27,7 +31,13 @@ Map from the JAX package:
 ``segmentation.py``                ``segmentation.py`` (framing in torch)
 ``ops/pallas_fir.py``              ``ops/fir.py`` + ``csrc/fir.cu``
 ``ops/pallas_welch3.py`` and the   ``ops/welch.py`` + ``csrc/welch.cu``
-entries of ``ops/pallas_welch.py``
+v2 kernel and entries of           (kernel B)
+``ops/pallas_welch.py``
+``ops/pallas_welch3.py`` (packed   ``ops/welch_packed.py`` +
+entries)                           ``csrc/welch.cu`` (kernel H: B's
+                                   packed modes)
+``ops/pallas_fir.py`` (FIR-        ``ops/fir.py`` + ``csrc/fir.cu``
+transpose feeder)
 ``ops/pallas_welch3.py`` (STFT     ``ops/stft.py`` + ``csrc/stft.cu``
 entries)
 ``hilbert.py`` (slab kernel)       ``ops/hilbert.py`` + ``csrc/hilbert.cu``
@@ -35,8 +45,8 @@ entries)
 ``welch_pallas_fused``,            ``csrc/welch_dft.cu``
 ``welch_power_pallas``)
 ``utils/profiling.py`` (probes)    ``ops/probe.py`` + ``csrc/probe.cu``
-(the FFT of kernels B to E)       ``csrc/fft.cuh``
-(the partial sums of B, E, F, G)  ``csrc/reduce.cuh``
+(the FFT of kernels B to E, H)     ``csrc/fft.cuh``
+(the partial sums of B, E-H)       ``csrc/reduce.cuh``
 ``ops/transform.py``               ``ops/transform.py`` (``torch.fft``)
 (kernel build and load)            ``ops/_build.py``
 ``filters.py``                     ``filters.py`` (blocked IIR)
@@ -60,7 +70,11 @@ entries)
 
 CUDA tensors go through the hand-written kernels in ``csrc/`` (built with
 ``nvcc`` at first use); CPU tensors take each kernel's plain PyTorch
-version.  The rest of the JAX package waits for later slices (ROADMAP.md).
+version.  The entry points compute on their ``device=`` argument, else on
+their tensors' device, else on the package default
+(``config.set_default_device``), else on the card, and raise where there
+is none: the CPU runs only when asked for.  The rest of the JAX package
+waits for later slices (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -25,18 +25,75 @@ frozen dataclass so every entry point defaults identically:
 complexness) into a concrete :class:`ResolvedSpectral` (segment plan +
 window + norms), and :func:`welch_psd` is the functional front door:
 ``welch_psd(tvec, x, y, cfg) -> (freq, Pxy, Pxx, Pyy, Cxy, phi, info)``.
+
+The port's device rule lives here too: :func:`resolve_device` picks the
+device an entry point computes on, and :func:`set_default_device` /
+:func:`default_device` set the package default it falls back to.  There is
+no quiet fallback to the CPU: without a card and without a CPU request,
+an entry point raises.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, replace, asdict
 
 import numpy as np
+import torch
 
 from . import segmentation as seg
 from .windows import windows as _windows
 
 __all__ = ["SpectralConfig", "ResolvedSpectral", "welch_psd",
-           "from_reference"]
+           "from_reference", "resolve_device", "set_default_device",
+           "default_device"]
+
+
+# --------------------------------------------------------------------------- #
+# Device rule
+# --------------------------------------------------------------------------- #
+
+_DEFAULT_DEVICE = None
+
+
+def set_default_device(device):
+    """Set the device the entry points compute on when neither their
+    ``device=`` argument nor a tensor argument names one (None: the card).
+    Returns the previous setting."""
+    global _DEFAULT_DEVICE
+    prev = _DEFAULT_DEVICE
+    _DEFAULT_DEVICE = None if device is None else torch.device(device)
+    return prev
+
+
+@contextlib.contextmanager
+def default_device(device):
+    """:func:`set_default_device` for the enclosed block, e.g. ``with
+    default_device("cpu"): ...`` to run the plain versions on the CPU."""
+    prev = set_default_device(device)
+    try:
+        yield
+    finally:
+        set_default_device(prev)
+
+
+def resolve_device(device=None, *arrays) -> torch.device:
+    """The device an entry point computes on, in this order: ``device``;
+    the device of the first tensor among ``arrays``; the package default
+    (:func:`set_default_device`); else ``cuda``.  Raises ``RuntimeError``
+    where that last step finds no card."""
+    if device is not None:
+        return torch.device(device)
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    if _DEFAULT_DEVICE is not None:
+        return _DEFAULT_DEVICE
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device: pass device="cpu" (or tensors on the CPU, or '
+            'set pyfft_tpu_torch.config.set_default_device("cpu")) to run '
+            "the plain PyTorch versions on the CPU")
+    return torch.device("cuda")
 
 
 _DETREND_CODES = {1: 1, 0: 0, -1: -1,

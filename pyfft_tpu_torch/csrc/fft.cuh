@@ -1,6 +1,6 @@
 // Segment staging and the in-place radix-2 FFT in shared memory, shared by
-// kernel B (welch.cu) and kernel C (stft.cu), so that both run one FFT and
-// kernel C's tests also cover kernel B's transform.
+// kernels B and H (welch.cu) and C (stft.cu), so that they
+// run one FFT and each one's tests also cover the others' transform.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,30 +23,40 @@ __device__ __forceinline__ void stage(float* raw, const float* sig,
     }
 }
 
+// One part of a segment: v[n] = (fir(component `comp` of sig)[start + n]
+// - mean) * win[n] goes to buf[bitrev(n)].x, with .y set to 0 (imag =
+// false), or to buf[bitrev(n)].y (imag = true).  The raw samples pass
+// through `raw`, so the two parts of one buffer are staged one after the
+// other.  Ends with a __syncthreads.
+__device__ inline void load_component(float2* buf, float* raw,
+                                      const float* taps, int K,
+                                      const float* sig, int estride, int comp,
+                                      long long start, float mean,
+                                      const float* __restrict__ win, int N,
+                                      int logN, bool imag) {
+    stage(raw, sig, estride, comp, start, N + K - 1, K);
+    __syncthreads();
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+        const float v = (fir_point(raw + n, taps, K) - mean) * __ldg(win + n);
+        if (imag)
+            buf[bitrev(n, logN)].y = v;
+        else
+            buf[bitrev(n, logN)] = make_float2(v, 0.f);
+    }
+    __syncthreads();
+}
+
 // buf[bitrev(n)] = (fir(sig) - mean) * win for one segment.
 __device__ inline void load_segment(float2* buf, float* raw, const float* taps,
                                     int K, const float* sig, int estride,
                                     int cplx, float mean_re, float mean_im,
                                     const float* __restrict__ win,
                                     long long start, int N, int logN) {
-    const int span = N + K - 1;
-    stage(raw, sig, estride, 0, start, span, K);
-    __syncthreads();
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-        const float v = (fir_point(raw + n, taps, K) - mean_re) * __ldg(win + n);
-        buf[bitrev(n, logN)] = make_float2(v, 0.f);
-    }
-    __syncthreads();
-    if (cplx) {
-        stage(raw, sig, estride, 1, start, span, K);
-        __syncthreads();
-        for (int n = threadIdx.x; n < N; n += blockDim.x) {
-            const float v =
-                (fir_point(raw + n, taps, K) - mean_im) * __ldg(win + n);
-            buf[bitrev(n, logN)].y = v;
-        }
-        __syncthreads();
-    }
+    load_component(buf, raw, taps, K, sig, estride, 0, start, mean_re, win, N,
+                   logN, false);
+    if (cplx)
+        load_component(buf, raw, taps, K, sig, estride, 1, start, mean_im,
+                       win, N, logN, true);
 }
 
 // In-place radix-2 decimation-in-time FFT of a bit-reversed buffer.

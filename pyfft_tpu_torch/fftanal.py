@@ -160,8 +160,8 @@ def stft_segments(x, tvec, win, plan: seg.SegmentPlan, fs, *, onesided=True,
     Matches the reference ``fftanal.fft_win`` contract
     (``fft_analysis.py:2126-2203``) with batched execution; ``Xfft`` is
     complex on the host whatever the transform path.  ``x`` is a tensor
-    (computed on its device) or an array (computed on ``device``, else
-    cuda when present, else the CPU).
+    (computed on its device) or an array (computed on ``device``, else the
+    package default, else the card: ``config.resolve_device``).
 
     ``fft_backend``: None/'auto' takes kernel C on a CUDA device and
     ``'xla'`` on the CPU; ``'pallas'`` takes kernel C (its plain version

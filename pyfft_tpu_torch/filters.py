@@ -24,8 +24,9 @@
   :func:`downsample_efficient`, :func:`resample_poly`, and :func:`smooth`.
 
 Functions that return NumPy in the JAX package return NumPy here; they
-compute on ``device`` (the first tensor's device, else the given one, else
-cuda when present, else the CPU) in float64 (complex128 for complex
+compute on the port's device (:func:`pyfft_tpu_torch.config.resolve_device`:
+``device``, else the first tensor's device, else the package default, else
+the card) in float64 (complex128 for complex
 input), as the JAX package does under x64.
 """
 from __future__ import annotations

@@ -9,8 +9,8 @@ across channels (one :func:`pyfft_tpu_torch.integrate.integratespectra`
 call per harmonic).
 
 Device: the spectra are computed on ``device`` when the merged settings
-carry one (``device="cpu"`` for the tests), else on the card when one is
-present (``fft_pwelch``'s rule).  A segment is a whole number of
+carry one (``device="cpu"`` for the tests), else by ``fft_pwelch``'s rule
+(the package default, else the card).  A segment is a whole number of
 modulation periods, ``nwins = floor(intno2per * 2/fmod * Fs)``, which is
 almost never a power of two, so ``run(fft_backend='pallas')`` takes kernel
 E (:mod:`pyfft_tpu_torch.ops.welch_v1`) wherever the JAX package takes TPU

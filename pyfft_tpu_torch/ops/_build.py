@@ -39,9 +39,10 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "pyfft_error_string": ([_I], ctypes.c_char_p),
     "pyfft_fir": ([_P, _P, _P, _LL, _LL, _I, _P], _I),
+    "pyfft_fir_t": ([_P, _P, _LL, _I, _P, _I, _P, _P, _LL, _LL, _P], _I),
     "pyfft_welch_smem_bytes": ([_I, _I], _LL),
     "pyfft_welch": ([_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                     _I, _I, _I, _I, _D, _P], _I),
+                     _I, _I, _I, _I, _I, _D, _P], _I),
     "pyfft_stft": ([_P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                     ctypes.c_float, _P], _I),
     "pyfft_hilbert": ([_P, _P, _P, _I, _I, _P], _I),

@@ -147,7 +147,8 @@ def stft_cuda(x, y, win, norm, *, navr, nwins, hop, detrend_style=1):
 # Entry (JAX package name)
 # --------------------------------------------------------------------------- #
 
-def _stft(x, y, win, norm, *, navr, nwins, noverlap, detrend_style=1):
+def _stft(x, y, win, norm, *, navr, nwins, noverlap, detrend_style=1,
+          device=None):
     """Complex ``(C, navr, nwins)`` spectra of :func:`stft_pallas3`, on the
     signals' device: signals cast to float32 (complex64 if any is complex),
     as the JAX kernel casts them."""
@@ -157,7 +158,7 @@ def _stft(x, y, win, norm, *, navr, nwins, noverlap, detrend_style=1):
         raise ValueError(
             f"stft kernel: unsupported geometry nwins={nwins} "
             f"noverlap={noverlap} detrend={detrend_style}")
-    dev = _device(None, x, y)
+    dev = _device(device, x, y)
     x, y = _stack(_tensor(x, dev), None if y is None else _tensor(y, dev))
     dtype = (torch.complex64 if x.is_complex() or y.is_complex()
              else torch.float32)
@@ -173,7 +174,7 @@ def _stft(x, y, win, norm, *, navr, nwins, noverlap, detrend_style=1):
 
 
 def stft_pallas3(x, y=None, win=None, norm=1.0, *, navr, nwins, noverlap,
-                 detrend_style=1):
+                 detrend_style=1, device=None):
     """Per-segment STFT of real or complex signals (module docstring).
 
     ``x (nt,)`` plus optional further signals ``y (nch, nt)`` -> natural-
@@ -184,5 +185,5 @@ def stft_pallas3(x, y=None, win=None, norm=1.0, *, navr, nwins, noverlap,
     outside the kernel's domain.
     """
     X = _stft(x, y, win, norm, navr=navr, nwins=nwins, noverlap=noverlap,
-              detrend_style=detrend_style)
+              detrend_style=detrend_style, device=device)
     return X.real, X.imag

@@ -3,8 +3,9 @@
 
 Small analysis modules need plain FFTs that run on whatever device is
 present.  These run ``torch.fft`` on the port's device rule
-(:func:`pyfft_tpu_torch.spectral._device`: the tensor's device, else
-``device``, else cuda when present, else the CPU) in the input's precision
+(:func:`pyfft_tpu_torch.config.resolve_device`: ``device``, else the
+tensor's device, else the package default, else the card) in the input's
+precision
 and return NumPy arrays.  The JAX package's real-pair matmul branch exists because its TPU
 backend has no complex dtype; it has no counterpart here.  Heavy
 pipelines (Welch, STFT, FIR) have their own paths and do not go through

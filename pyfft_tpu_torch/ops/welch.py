@@ -19,8 +19,16 @@ one-sided bin doubling.
   the JAX package computes it in XLA outside its kernel.
 - On CPU tensors :func:`welch_plain` runs: ``fir_plain`` -> mean ->
   frames -> window -> ``torch.fft.fft`` -> sums, in the input's dtype.
+- ``welch_cuda(..., packed=True)`` runs the kernel's packed modes, kernel
+  H (the packed entries of :mod:`pyfft_tpu_torch.ops.welch_packed`): for
+  one real signal or one real pair, two real sequences share one complex
+  FFT and are split again by the symmetry ``Z_{N-k}``; half the FFTs of
+  kernel B on the same signals.
 
-``LAUNCHES`` counts the launches of kernel B.
+``LAUNCHES`` counts the launches of kernel B, ``PACKED_LAUNCHES`` those of
+kernel H.  The entries compute on the port's device
+(:func:`pyfft_tpu_torch.config.resolve_device`): ``device=``, else the
+first tensor argument's, else the package default, else the card.
 
 Domain of the kernel (re-derived for the card; the TPU's lane and VMEM
 limits do not apply): ``nwins`` a power of two in 16..16384, any hop in
@@ -28,6 +36,15 @@ limits do not apply): ``nwins`` a power of two in 16..16384, any hop in
 65534), up to 1024 taps, ``detrend_style`` in {0, 1}, real float32 or
 complex64 (two-sided) signals.  Its shared memory,
 ``8*nwins + 4*(nwins+K-1) + 4*K`` bytes, is at most 205 KB there.
+
+Kernel B also stands for TPU kernel #8, the v2 factored kernel
+(``pallas_welch.py::_factored_kernel``), which the JAX package's
+``welch_fir_pallas_fused`` runs where TPU kernel #1's gate fails and its
+``_v2_geometry`` holds (e.g. nwins 2048 every 128 samples): every such
+geometry is inside kernel B's domain (``tests/test_torch_welch_v2.py``
+holds that against the JAX gate).  The port keeps the global-mean contract
+there, where the JAX v2 kernel removes each segment's own mean (ROADMAP
+Queue 3).
 """
 from __future__ import annotations
 
@@ -37,16 +54,18 @@ import numpy as np
 import torch
 
 from . import _build
+from ..config import resolve_device
 from .fir import fir_plain, PALLAS_FIR_MAX_TAPS
 
 __all__ = ["welch_fir_pallas3", "welch_fir_pallas_fused",
            "welch_pallas3_twosided", "pallas_welch2_applicable",
-           "welch_plain", "welch_cuda", "LAUNCHES"]
+           "welch_plain", "welch_cuda", "LAUNCHES", "PACKED_LAUNCHES"]
 
 _MIN_NWINS = 16
 _MAX_NWINS = 16384
 
 LAUNCHES = 0
+PACKED_LAUNCHES = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -185,12 +204,28 @@ def _groups(navr: int, ncols: int, device) -> int:
     return max(1, min(navr, -(-4 * sms // ncols)))
 
 
+_MIRROR_SIGN = (1.0, 1.0, -1.0)
+
+
+def _mirror(out: torch.Tensor, nwins: int, nfreq: int) -> torch.Tensor:
+    """Bins ``nwins/2+1 .. nfreq-1`` of real signals' powers ``out (C, 3,
+    nwins/2+1)`` from their mirror images: ``P[N-k] = P[k]`` and ``Im
+    Pxy[N-k] = -Im Pxy[k]`` (row 2)."""
+    if nfreq <= out.shape[-1]:
+        return out
+    sign = torch.tensor(_MIRROR_SIGN, dtype=out.dtype,
+                        device=out.device)[:, None]
+    tail = out[..., nwins - nfreq + 1:nwins // 2].flip(-1) * sign
+    return torch.cat([out, tail], dim=-1)
+
+
 def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
-               detrend_style=1):
-    """Launch kernel B.  ``x (nt,)`` contiguous and ``y (nch, nt)`` with
-    unit stride along time, both float32 (one-sided use) or both complex64
-    (two-sided), on one CUDA device.  Raises outside the kernel's domain."""
-    global LAUNCHES
+               detrend_style=1, packed=False):
+    """Launch kernel B, or with ``packed`` kernel H.  ``x (nt,)`` contiguous
+    and ``y (nch, nt)`` with unit stride along time, both float32 (one-sided
+    use) or both complex64 (two-sided), on one CUDA device; ``packed``
+    takes float32 and ``nch <= 1``.  Raises outside the kernel's domain."""
+    global LAUNCHES, PACKED_LAUNCHES
     if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
             and x.is_cuda and y.device == x.device):
         raise ValueError("welch_cuda needs x and y on one CUDA device")
@@ -209,10 +244,12 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
     nch = y.shape[0]
     noverlap = nwins - hop
     if not _in_domain(nwins, noverlap, navr, taps, detrend_style) \
-            or nch + 1 > 65535 or not 1 <= nfreq <= nwins:
+            or nch + 1 > 65535 or not 1 <= nfreq <= nwins \
+            or (packed and (cplx or nch > 1)):
         raise ValueError(
             f"welch kernel: unsupported geometry nwins={nwins} hop={hop} "
-            f"navr={navr} nch={nch} nfreq={nfreq} detrend={detrend_style}")
+            f"navr={navr} nch={nch} nfreq={nfreq} detrend={detrend_style} "
+            f"packed={packed} complex={cplx}")
     if (navr - 1) * hop + nwins > nt:
         raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
                          f"fit {nt} samples")
@@ -228,10 +265,14 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
         raise ValueError(f"window of shape {tuple(w.shape)}, need ({nwins},)")
     t = torch.as_tensor(taps64, dtype=torch.float32, device=dev)
     tw = _twiddles(int(nwins), str(dev))
-    ngroups = _groups(navr, nch + 1, dev)
-    part = torch.empty((ngroups, nch + 1, 3, nfreq), dtype=torch.float64,
+    # the packed modes keep bins 0..nwins/2 and transform two sequences at
+    # once: ceil(navr/2) transforms of x alone, navr of (x, y)
+    nbins = min(nfreq, nwins // 2 + 1) if packed else nfreq
+    nffts = (navr if nch else -(-navr // 2)) if packed else navr
+    ngroups = _groups(nffts, 1 if packed else nch + 1, dev)
+    part = torch.empty((ngroups, nch + 1, 3, nbins), dtype=torch.float64,
                        device=dev)
-    out = torch.empty((nch + 1, 3, nfreq), dtype=torch.float32, device=dev)
+    out = torch.empty((nch + 1, 3, nbins), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -240,9 +281,14 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
             yf.stride(0) if nch else 0, 2 if cplx else 1, int(cplx),
             t.data_ptr(), int(t.numel()), means.data_ptr(), w.data_ptr(),
             tw.data_ptr(), part.data_ptr(), out.data_ptr(), nch, int(nwins),
-            int(hop), int(navr), ngroups, int(nfreq), float(norm), stream)
+            int(hop), int(navr), ngroups, int(nbins), int(bool(packed)),
+            float(norm), stream)
         _build.check(rc, "welch kernel")
-    LAUNCHES += 1
+    if packed:
+        PACKED_LAUNCHES += 1
+        out = _mirror(out, int(nwins), int(nfreq))
+    else:
+        LAUNCHES += 1
     return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]
 
 
@@ -250,9 +296,12 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
 # Entries (JAX package names)
 # --------------------------------------------------------------------------- #
 
-def _signals(x, y, dtype):
-    x = torch.as_tensor(x)
-    y = torch.as_tensor(y, device=x.device)
+def _signals(x, y, dtype, device=None):
+    """``x`` and ``y`` as tensors of ``dtype`` on the device the entry
+    computes on (``resolve_device``); ``y`` as ``(nch, nt)`` rows."""
+    dev = resolve_device(device, x, y)
+    x = torch.as_tensor(x, device=dev)
+    y = torch.as_tensor(y, device=dev)
     if y.dim() == 1:
         y = y[None]
     x = x.to(dtype).contiguous()
@@ -262,16 +311,19 @@ def _signals(x, y, dtype):
     return x, y
 
 
-def _run(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend_style):
+def _run(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend_style,
+         packed=False):
+    """Kernel B (kernel H with ``packed``) on CUDA tensors, else the plain
+    version, which is both kernels' plain version."""
     kw = dict(navr=int(navr), nwins=int(nwins), hop=int(hop), taps=taps,
               detrend_style=int(detrend_style))
     if x.is_cuda:
-        return welch_cuda(x, y, win, nfreq, norm, **kw)
+        return welch_cuda(x, y, win, nfreq, norm, packed=packed, **kw)
     return welch_plain(x, y, win, nfreq, norm, **kw)
 
 
 def welch_fir_pallas3(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
-                      taps=None, detrend_style=1):
+                      taps=None, detrend_style=1, device=None):
     """One-sided Welch cross-powers of real signals with an optional fused
     FIR (module docstring).  Signals are cast to float32, as the JAX kernel
     casts them; returns ``(Pxx (nfreq,), Pyy (nch, nfreq), Pxy_re,
@@ -280,18 +332,19 @@ def welch_fir_pallas3(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
         raise ValueError(
             f"welch kernel: unsupported geometry nwins={nwins} "
             f"noverlap={noverlap} navr={navr} detrend={detrend_style}")
-    x, y = _signals(x, y, torch.float32)
+    x, y = _signals(x, y, torch.float32, device)
     return _run(x, y, win, int(nfreq), norm, navr=navr, nwins=nwins,
                 hop=nwins - noverlap, taps=taps, detrend_style=detrend_style)
 
 
-# The JAX package's v2 entry, which runs the v3 kernel wherever it applies;
-# kernel B covers both domains.
+# The JAX package's v2 entry, which runs TPU kernel #1 wherever it applies
+# and TPU kernel #8 at the other v2 geometries; kernel B covers both domains
+# with the documented global-mean detrend.
 welch_fir_pallas_fused = welch_fir_pallas3
 
 
 def welch_pallas3_twosided(x, y, win, norm, *, navr, nwins, noverlap,
-                           taps=None, detrend_style=1):
+                           taps=None, detrend_style=1, device=None):
     """Two-sided Welch cross-powers of complex signals (the Doppler IQ
     configuration): ``x (nt,)``, ``y (nchz, nt)`` cast to complex64; returns
     ``(Pxx (nwins,), Pyy (nchz, nwins), Pxy_re, Pxy_im)`` in natural DFT
@@ -300,6 +353,6 @@ def welch_pallas3_twosided(x, y, win, norm, *, navr, nwins, noverlap,
         raise ValueError(
             f"welch two-sided kernel: unsupported geometry nwins={nwins} "
             f"noverlap={noverlap} navr={navr} detrend={detrend_style}")
-    x, y = _signals(x, y, torch.complex64)
+    x, y = _signals(x, y, torch.complex64, device)
     return _run(x, y, win, int(nwins), norm, navr=navr, nwins=nwins,
                 hop=nwins - noverlap, taps=taps, detrend_style=detrend_style)

@@ -26,7 +26,8 @@ one-sided bin doubling.
 - On CPU tensors :func:`welch_dft_plain` runs: detrend -> frames ->
   window -> ``torch.fft.fft`` -> sums, in the input's dtype.
 
-``LAUNCHES`` counts the launches of kernel E.
+``LAUNCHES`` counts the launches of kernel E.  The entries compute on the
+port's device (:func:`pyfft_tpu_torch.config.resolve_device`).
 
 Domain of the kernel (re-derived for the card; the TPU's VMEM tiling does
 not apply): ``1 <= nwins <= 8192`` (so ``M <= 16384``, 128 KB of complex64
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..config import resolve_device
 from .welch import (_SUM_BLOCK, _groups, _row_sums, _signals, _twiddles,
                     welch_plain)
 from ..utils.detrend import detrend_func
@@ -305,24 +307,25 @@ def _run(x, y, win, nfreq, norm, *, navr, nwins, hop, detrend_style):
 
 
 def welch_pallas_fused(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
-                       detrend_style=1):
+                       detrend_style=1, device=None):
     """One-sided real-input Welch cross-powers (module docstring): global
     detrend, frames, summed one-sided cross-powers times ``norm``.
     Returns ``(Pxx (nfreq,), Pyy (nch, nfreq), Pxy_re, Pxy_im)`` as float32
     tensors on the input's device.  Raises ``ValueError`` outside kernel
     E's domain."""
-    x, y = _signals(x, y, torch.float32)
+    x, y = _signals(x, y, torch.float32, device)
     return _run(x, y, win, nfreq, norm, navr=navr, nwins=nwins,
                 hop=int(nwins) - int(noverlap), detrend_style=detrend_style)
 
 
-def welch_power_pallas(xfr, yfr, win, nfreq):
+def welch_power_pallas(xfr, yfr, win, nfreq, device=None):
     """Segment-summed one-sided cross-powers of pre-framed, un-windowed
     segments ``xfr (B, nwins)`` and ``yfr (nch, B, nwins)``: the same
     kernel with ``hop = nwins``, no detrend and ``norm = 1``.  The caller
     divides by ``navr`` and applies the one-sided scales."""
-    xfr = torch.as_tensor(xfr)
-    yfr = torch.as_tensor(yfr, device=xfr.device)
+    dev = resolve_device(device, xfr, yfr)
+    xfr = torch.as_tensor(xfr, device=dev)
+    yfr = torch.as_tensor(yfr, device=dev)
     B, nwins = xfr.shape
     x, y = _signals(xfr.reshape(-1), yfr.reshape(yfr.shape[0], B * nwins),
                     torch.float32)

@@ -15,8 +15,14 @@ Counterpart of :mod:`pyfft_tpu.spectral` (the role of the reference's
     two-sided complex input, else kernel E
     (:mod:`pyfft_tpu_torch.ops.welch_v1`; any ``nwins`` that TPU kernel
     #7 tiles, up to 5452, and linear detrend) for one-sided real input.
-    Where neither gate holds it takes the ``'xla'`` core, as the JAX
-    package takes ``'mxu'``;
+    With ``PYFFT_PACKED=1`` in the environment (read at each call), a
+    one-sided real pair (one channel) whose ``packed_pair_geometry``
+    holds takes kernel H (:mod:`pyfft_tpu_torch.ops.welch_packed`)
+    instead, as the JAX package takes its packed kernel there (the
+    opt-in keeps the routes the JAX package's; on the card kernel H's
+    kernel is the faster at one channel).  Where no
+    gate holds it takes the ``'xla'`` core, as the JAX package takes
+    ``'mxu'``;
 * the O(nfreq) finalization (coherence, variances, amplitude spectra,
   lag-domain correlations) runs on the host in float64 NumPy, as in the
   JAX package;
@@ -24,9 +30,10 @@ Counterpart of :mod:`pyfft_tpu.spectral` (the role of the reference's
   energy doubling of interior bins, ``1/S1^2`` then ``1/ENBW`` scaling,
   Bendat'78 coherence variance, lag-domain correlations.
 
-Device: tensors keep their device; NumPy inputs go to ``device=`` when it
-is given, else to ``cuda`` when a CUDA device is present, else to the CPU
-(the JAX package likewise runs on its default backend).
+Device (:func:`pyfft_tpu_torch.config.resolve_device`): ``device=`` when
+it is given, else the first tensor argument's device, else the package
+default (``config.set_default_device``), else ``cuda``; without a card
+that last step raises, so the CPU runs only when asked for.
 
 In a ``torch.profiler`` trace, ``fft_pwelch`` marks two ranges
 (:func:`pyfft_tpu_torch.utils.profiling.stage`): ``fft_pwelch.h2d``, the
@@ -36,9 +43,12 @@ finalization.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from .config import resolve_device as _device
 from .utils.structure import Struct
 from .utils.detrend import detrend_func
 from .utils.profiling import stage
@@ -57,17 +67,6 @@ def resolve_fft_backend(fft_backend=None) -> str:
     if fft_backend in ("xla", "mxu", "pallas"):
         return fft_backend
     return "xla"
-
-
-def _device(device, *arrays) -> torch.device:
-    """The compute device: the first tensor's, else ``device``, else cuda
-    when present, else cpu."""
-    for a in arrays:
-        if isinstance(a, torch.Tensor):
-            return a.device
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -276,19 +275,28 @@ _NO_SEGMENTS = dict(Pxx_seg=None, Pyy_seg=None, Pxy_seg=None,
 
 
 def pallas_route(*, nwins, noverlap, navr, nnyquist, onesided,
-                 detrend_style, ntmodel, is_cplx):
+                 detrend_style, ntmodel, is_cplx, nch=None):
     """The kernel ``fft_backend='pallas'`` takes for a geometry, following
     the JAX package's gates (``pyfft_tpu/spectral.py:398-479``) gate for
-    gate: ``'B'`` (kernel B, :mod:`~pyfft_tpu_torch.ops.welch`; also the
-    two-sided complex path), else ``'E'`` (kernel E,
-    :mod:`~pyfft_tpu_torch.ops.welch_v1`) where the gate of TPU kernel #7
-    holds, else None (the ``torch.fft`` core), which happens only where the
-    JAX package too leaves Pallas for ``'mxu'``."""
+    gate: ``'H'`` (kernel H, :mod:`~pyfft_tpu_torch.ops.welch_packed`)
+    where ``PYFFT_PACKED`` is ``"1"`` in the environment, for one-sided
+    real input with ``nch`` = 1 cross channel, detrend mean/none and the
+    JAX package's ``packed_pair_geometry``; else ``'B'`` (kernel B,
+    :mod:`~pyfft_tpu_torch.ops.welch`; also the two-sided complex path),
+    else ``'E'`` (kernel E, :mod:`~pyfft_tpu_torch.ops.welch_v1`) where
+    the gate of TPU kernel #7 holds, else None (the ``torch.fft`` core),
+    which happens only where the JAX package too leaves Pallas for
+    ``'mxu'``."""
     from .ops.welch import pallas_welch2_applicable
+    from .ops.welch_packed import packed_pair_geometry
     from .ops.welch_v1 import pallas_welch_applicable
     if ntmodel or is_cplx == onesided:
         # per-segment reference model, one-sided complex or two-sided real
         return None
+    if (os.environ.get("PYFFT_PACKED") == "1" and not is_cplx and nch == 1
+            and detrend_style in (0, 1)
+            and packed_pair_geometry(navr, nwins, noverlap) is not None):
+        return "H"
     if pallas_welch2_applicable(nwins, noverlap, navr,
                                 detrend_style=detrend_style):
         return "B"
@@ -308,12 +316,13 @@ def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
     averaged outputs here.  Per-segment arrays are not produced.
     """
     from .ops.welch import welch_fir_pallas_fused, welch_pallas3_twosided
+    from .ops.welch_packed import welch_pair_packed
     from .ops.welch_v1 import welch_pallas_fused
     is_cplx = x.is_complex() or y.is_complex()
     route = pallas_route(nwins=nwins, noverlap=noverlap, navr=navr,
                          nnyquist=nnyquist, onesided=onesided,
                          detrend_style=detrend_style, ntmodel=ntmodel,
-                         is_cplx=is_cplx)
+                         is_cplx=is_cplx, nch=y.shape[0])
     if route is None:
         return None
     norm = np.float32(1.0 / (s1sq_enbw * navr))
@@ -328,7 +337,8 @@ def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
         return dict(Pxx=sh(Pxx).astype(np.complex128),
                     Pyy=sh(Pyy).T.astype(np.complex128),
                     Pxy=(sh(Pr) + 1j * sh(Pi)).T, **_NO_SEGMENTS)
-    fused = welch_fir_pallas_fused if route == "B" else welch_pallas_fused
+    fused = {"B": welch_fir_pallas_fused, "E": welch_pallas_fused,
+             "H": welch_pair_packed}[route]
     Pxx, Pyy, Pr, Pi = fused(x, y, win, nnyquist, norm, **kw)
     sc = _onesided_power_scale(nfft, nnyquist).astype(np.float32)
     return dict(Pxx=(_np(Pxx) * sc).astype(np.complex128),

@@ -9,7 +9,8 @@ Hanning power correction at ``:109``) and the ``stft`` wrapper that drives an
 
 The per-window loop becomes one batched frame -> window -> |FFT|^2 pipeline
 on ``torch.fft``; windows are a batch axis.  It runs on the port's device
-rule (cuda when present, else the CPU) and returns NumPy arrays.
+rule (:func:`pyfft_tpu_torch.config.resolve_device`: the package default,
+else the card) and returns NumPy arrays.
 """
 from __future__ import annotations
 

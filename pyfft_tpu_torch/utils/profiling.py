@@ -8,8 +8,9 @@ Counterpart of :mod:`pyfft_tpu.utils.profiling`:
 - :func:`trace`: a ``torch.profiler`` capture of a block (CPU, and CUDA
   where a card is present), written as a Chrome trace;
 - FLOP models of the hot chains (:func:`fft_flops`, :func:`welch_flops`,
-  :func:`fir_flops`, copies of the JAX package's) and of the four-step
-  analytic-signal chain (:func:`analytic_flops_bytes`);
+  :func:`fir_flops`, copies of the JAX package's), of the packed Welch
+  (:func:`welch_packed_flops`) and of the four-step analytic-signal chain
+  (:func:`analytic_flops_bytes`);
 - :func:`device_peaks` (book peaks of the card, keyed on its name as
   ``nvidia-smi`` or ``torch.cuda.get_device_name`` gives it, with the
   power limit checked against the rating the book peaks assume),
@@ -35,8 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["stage", "stage_log", "trace", "fft_flops", "welch_flops",
-           "fir_flops", "analytic_flops_bytes", "device_peaks",
-           "peak_tflops", "bound_ms", "roofline", "measure", "report",
+           "welch_packed_flops", "fir_flops", "analytic_flops_bytes",
+           "device_peaks", "peak_tflops", "bound_ms", "roofline", "measure", "report",
            "measure_pipeline_overlap"]
 
 
@@ -95,6 +96,19 @@ def welch_flops(navr, nwins, nch=1):
                + fft_flops(nwins, real=True)
                + 4 * (nwins // 2 + 1))    # |X|^2 + cross-power terms
     return navr * per_seg * (1 + nch)
+
+
+def welch_packed_flops(navr, nwins, pair=False):
+    """Kernel H (``ops.welch_packed``): two real sequences per complex FFT,
+    so ``ceil(navr/2)`` transforms of one signal's segments (auto) or
+    ``navr`` of (x, y) pairs (pair), half the transforms of kernel B on the
+    same signals; plus the window on every real segment and, per
+    transform, the split and the sums of the ``nwins/2 + 1`` bins kept."""
+    nfft = navr if pair else -(-navr // 2)
+    nseq = 2 * navr if pair else navr
+    per_bin = 16 if pair else 6
+    return (nseq * nwins + fft_flops(nwins, batch=nfft)
+            + nfft * (nwins // 2 + 1) * per_bin)
 
 
 def fir_flops(nt, ntaps, nch=1, method="overlap-save"):
@@ -252,18 +266,20 @@ def measure_pipeline_overlap(nrows=65536, N=1152, rows_blk=512, passes=12,
       only; the name is the JAX function's);
     - ``fused`` — kernel G over the streamed blocks.
 
-    ``device`` defaults to the card when one is present; on the CPU the
-    plain versions run (for tests, at small sizes).  Returns the JAX
+    ``device`` resolves as the entry points' does
+    (:func:`pyfft_tpu_torch.config.resolve_device`: the card unless the CPU
+    is asked for); on the CPU the plain versions run (for tests, at small
+    sizes).  Returns the JAX
     function's fields: the three times, ``read_gbs``, ``mxu_tflops``,
     ``fused_vs_serial`` and ``overlap_fraction = (t_mem + t_mxu -
     t_fused) / min(t_mem, t_mxu)`` clipped to [0, 1].
     """
+    from ..config import resolve_device
     from ..ops import probe
     if nrows % rows_blk or rows_blk % probe.GROUP:
         raise ValueError(f"nrows {nrows} must split into blocks of "
                          f"rows_blk {rows_blk}, a multiple of {probe.GROUP}")
-    dev = torch.device(device if device is not None else
-                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    dev = resolve_device(device)
     nb = nrows // rows_blk
     groups = rows_blk // probe.GROUP
     x = torch.as_tensor(np.random.default_rng(0).standard_normal((nrows, N)),

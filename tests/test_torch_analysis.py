@@ -50,10 +50,18 @@ from pyfft_tpu_torch.laplace import test_laplace as p_test_laplace
 from pyfft_tpu_torch.utils.detrend import detrend_linear, detrend_mean
 from pyfft_tpu.utils.detrend import (detrend_linear as j_detrend_linear,
                                      detrend_mean as j_detrend_mean)
+from pyfft_tpu_torch.config import default_device
 
 # both packages export a function `ccf` over the module's name
 jccf_mod = importlib.import_module("pyfft_tpu.ccf")
 pccf_mod = importlib.import_module("pyfft_tpu_torch.ccf")
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def close(got, want, rel=1e-10):

@@ -1,4 +1,4 @@
-"""Kernels A to G on a CUDA card against their plain versions.
+"""Kernels A to I on a CUDA card against their plain versions.
 
 Runs only where there is a card (each test skips elsewhere, deciding in
 the ``cuda_device`` fixture).  It imports neither JAX nor the JAX package,
@@ -408,3 +408,143 @@ def test_measure_pipeline_overlap_on_card(cuda_device):
     assert all(np.isfinite(v) and v > 0 for k, v in out.items()
                if k != "overlap_fraction")
     assert out["read_gbs"] <= 1.05 * pprof.device_peaks()[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair,nt,nwins,hop,ntaps,detrend,nf,amp", [
+    (False, 1 << 16, 4096, 2048, 0, 1, 2049, 1.0),     # config 1's geometry
+    (False, 1 << 16, 4096, 2048, 129, 1, 2049, 1.0),   # with the band-pass
+    (False, 40000, 512, 384, 33, 0, 512, 1.0),         # odd navr, all bins
+    (False, 5000, 16, 7, 5, 1, 9, 1.0),                # smallest window
+    (False, 1 << 17, 16384, 8192, 1024, 1, 8193, 1.0),  # largest
+    (True, 1 << 16, 4096, 2048, 0, 1, 2049, 1.0),
+    (True, 1 << 16, 1024, 512, 129, 0, 700, 0.1),      # |y| = |x| / 10
+    (True, 30000, 128, 100, 63, 1, 128, 1.0),          # odd hop, all bins
+    (True, 1 << 17, 16384, 8192, 0, 1, 8193, 1.0),
+])
+def test_welch_packed_kernel_matches_plain_on_card(cuda_device, pair, nt,
+                                                   nwins, hop, ntaps, detrend,
+                                                   nf, amp):
+    """Kernel H (kernel B's packed modes) vs its plain version (kernel
+    B's, at nch = 0 or 1) in float64 on the card: max |diff| / max |ref|
+    <= 2e-5 per output (float32 FFTs of two real sequences at once, float64
+    sums)."""
+    rng = np.random.default_rng(nt + nwins + pair)
+    xt = torch.as_tensor(rng.standard_normal(nt) + 0.3, dtype=torch.float32,
+                         device=cuda_device)
+    yt = torch.as_tensor(amp * (rng.standard_normal(nt) - 0.2),
+                         dtype=torch.float32, device=cuda_device)
+    taps = rng.standard_normal(ntaps) / ntaps if ntaps else None
+    navr = (nt - nwins) // hop + 1
+    win = np.hanning(nwins + 1)[:-1]
+    kw = dict(navr=navr, nwins=nwins, hop=hop, taps=taps,
+              detrend_style=detrend)
+    ys = yt[None] if pair else xt.new_empty((0, nt))
+    before, b0 = pw.PACKED_LAUNCHES, pw.LAUNCHES
+    got = pw.welch_cuda(xt, ys, win, nf, 1.0 / navr, packed=True, **kw)
+    torch.cuda.synchronize()
+    assert pw.PACKED_LAUNCHES == before + 1 and pw.LAUNCHES == b0
+    ref = pw.welch_plain(xt.double(), ys.double(), win, nf, 1.0 / navr, **kw)
+    if not pair:
+        got, ref = got[:1], ref[:1]
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        err = ((g.double() - r).abs().max() / r.abs().max()).item()
+        assert err <= 2e-5
+
+
+@pytest.mark.cuda
+def test_pyfft_packed_route_takes_kernel_h_on_card(cuda_device, monkeypatch):
+    """welch_cross_spectra('pallas') on one channel with PYFFT_PACKED=1
+    launches kernel H once (kernel B never) and agrees with the same call
+    without the variable (kernel B): 2e-5 of max per output."""
+    rng = np.random.default_rng(5)
+    nt, fs = 1 << 18, 1e6
+    x = torch.as_tensor(rng.standard_normal(nt), dtype=torch.float32,
+                        device=cuda_device)
+    y = torch.roll(x, 3) + 0.1 * torch.as_tensor(
+        rng.standard_normal(nt), dtype=torch.float32, device=cuda_device)
+    plan = pseg.plan_segments(nt, nwins=1024, windowoverlap=0.5)
+    win = np.hanning(1025)[:-1]
+    b0, h0 = pw.LAUNCHES, pw.PACKED_LAUNCHES
+    monkeypatch.setenv("PYFFT_PACKED", "1")
+    got = pt.welch_cross_spectra(x, y, win, plan, fs, fft_backend="pallas")
+    assert pw.PACKED_LAUNCHES == h0 + 1 and pw.LAUNCHES == b0
+    monkeypatch.delenv("PYFFT_PACKED")
+    ref = pt.welch_cross_spectra(x, y, win, plan, fs, fft_backend="pallas")
+    assert pw.PACKED_LAUNCHES == h0 + 1 and pw.LAUNCHES == b0 + 1
+    for k in ("Pxx", "Pyy", "Pxy"):
+        assert np.abs(got[k] - ref[k]).max() <= 2e-5 * np.abs(ref[k]).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,nt,nwins,noverlap,ntaps", [
+    (3, 1 << 16, 2048, 1920, 129),
+    (2, 1 << 16, 4096, 3584, 63),
+    (1, 1 << 18, 16384, 8192, 0),
+])
+def test_welch_kernel_at_v2_geometries_on_card(cuda_device, nch, nt, nwins,
+                                               noverlap, ntaps):
+    """Kernel B at geometries where the JAX package runs its v2 kernel (TPU
+    #8: its v2 gate holds there, tests/test_torch_welch_v2.py; the v3 gate
+    fails), against its plain version in float64 on the card: 2e-5 per
+    output, global-mean detrend."""
+    from pyfft_tpu_torch.ops.welch_packed import _v3_geometry
+    rng = np.random.default_rng(nwins + ntaps)
+    taps = rng.standard_normal(ntaps) / ntaps if ntaps else None
+    assert _v3_geometry(nwins, noverlap, nch) is None
+    xt = torch.as_tensor(rng.standard_normal(nt) + 0.4, dtype=torch.float32,
+                         device=cuda_device)
+    yt = torch.as_tensor(rng.standard_normal((nch, nt)) - 0.3,
+                         dtype=torch.float32, device=cuda_device)
+    hop = nwins - noverlap
+    navr = (nt - nwins) // hop + 1
+    win = np.hanning(nwins + 1)[:-1]
+    before = pw.LAUNCHES
+    got = pw.welch_fir_pallas_fused(xt, yt, win, nwins // 2 + 1, 1.0 / navr,
+                                    navr=navr, nwins=nwins, noverlap=noverlap,
+                                    taps=taps, detrend_style=1)
+    assert pw.LAUNCHES == before + 1
+    ref = pw.welch_plain(xt.double(), yt.double(), win, nwins // 2 + 1,
+                         1.0 / navr, navr=navr, nwins=nwins, hop=hop,
+                         taps=taps, detrend_style=1)
+    for g, r in zip(got, ref):
+        err = ((g.double() - r).abs().max() / r.abs().max()).item()
+        assert err <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,nt,ntaps,extra_rows,sub", [
+    (3, 1 << 16, 129, 64, True),     # zero tail, sub_row
+    (0, 1 << 14, 33, 0, False),      # one signal (C = 1)
+    (2, 128 * 300, 1, 12, False),    # taps = (1.0,): a pure interleave
+    (1, 1 << 15, 1024, -64, True),   # fewer rows out than in the signal
+])
+def test_fir_t_kernel_matches_plain_on_card(cuda_device, nch, nt, ntaps,
+                                            extra_rows, sub):
+    """Kernel I vs its plain version in float64 on the card: max |diff| /
+    max |ref| <= 1e-5 (float32 sums of K products), rows past the signal
+    exactly 0."""
+    rng = np.random.default_rng(nt + nch)
+    taps = np.ones(1) if ntaps == 1 else rng.standard_normal(ntaps) / ntaps
+    xt = torch.as_tensor(rng.standard_normal(nt) + 0.5, dtype=torch.float32,
+                         device=cuda_device)
+    yt = torch.as_tensor(rng.standard_normal((nch, nt)), dtype=torch.float32,
+                         device=cuda_device)
+    C, nr = nch + 1, nt // 128
+    nrows_out = nr + extra_rows
+    sub_row = (torch.as_tensor(rng.standard_normal((1, C * 128)),
+                               dtype=torch.float32, device=cuda_device)
+               if sub else None)
+    before = pfir.FIR_T_LAUNCHES
+    got = pfir.fir_transpose_pallas(xt, yt, taps, nrows_out, sub_row=sub_row)
+    torch.cuda.synchronize()
+    assert pfir.FIR_T_LAUNCHES == before + 1
+    assert got.shape == (nrows_out, C * 128) and got.dtype == torch.float32
+    ref = pfir.fir_transpose_plain(xt.double(), yt.double(), taps, nrows_out,
+                                   None if sub_row is None
+                                   else sub_row.double())
+    err = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    assert err <= 1e-5
+    if extra_rows > 0:
+        assert torch.count_nonzero(got[nr:]).item() == 0

@@ -29,11 +29,19 @@ import pyfft_tpu_torch.integrate as pint
 import pyfft_tpu_torch.spectrogram as psg
 from pyfft_tpu_torch.ops import stft as pstft
 from pyfft_tpu_torch.ops import welch as pwelch
+from pyfft_tpu_torch.config import default_device
 
 # both packages' ``utils`` re-export the function ``interp``, which hides
 # the submodule of the same name from attribute access
 jip = importlib.import_module("pyfft_tpu.utils.interp")
 pip = importlib.import_module("pyfft_tpu_torch.utils.interp")
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def _close(a, b, rtol=1e-10, floor=1e-10, what=""):

@@ -14,6 +14,14 @@ from pyfft_tpu.ops import pallas_fir as jfir
 
 import pyfft_tpu_torch.filters as pfilters
 from pyfft_tpu_torch.ops import fir as pfir
+from pyfft_tpu_torch.config import default_device
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def _taps(K, seed=0):

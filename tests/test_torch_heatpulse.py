@@ -21,9 +21,17 @@ import pyfft_tpu_torch as pt
 import pyfft_tpu_torch.heatpulse as php
 from pyfft_tpu_torch.ops import welch_v1
 from test_heatpulse import RUNINFO
+from pyfft_tpu_torch.config import default_device
 
 FIELDS = ("Amp", "Phase", "Coh", "Txy", "varA", "varP", "Tnn", "fmods",
           "Txx", "Vxy", "varC", "RMSECHpower", "ModECHpower")
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 @pytest.fixture(scope="module")

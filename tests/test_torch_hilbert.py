@@ -30,6 +30,14 @@ import pyfft_tpu_torch as pt
 from pyfft_tpu_torch.hilbert import (_analytic_factored, _factored_applies,
                                      analytic_mask, envelope_phase)
 from pyfft_tpu_torch.ops import hilbert as kd
+from pyfft_tpu_torch.config import default_device
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def _signal(shape, cplx, seed):

@@ -32,8 +32,16 @@ import pyfft_tpu_torch as pt
 from pyfft_tpu_torch.ops import probe
 from pyfft_tpu_torch.utils import profiling as prof
 from pyfft_tpu_torch.utils import workunits as pwu
+from pyfft_tpu_torch.config import default_device
 
 SMALL = dict(nrows=512, N=128, rows_blk=256, passes=3, iters=1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 @pytest.mark.parametrize("n,batch,real", [(1, 1, False), (2048, 7, True),

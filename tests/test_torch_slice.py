@@ -28,8 +28,16 @@ import pyfft_tpu_torch.segmentation as pseg
 import pyfft_tpu_torch.utils.detrend as pdet
 import pyfft_tpu_torch.windows as pwin
 from pyfft_tpu_torch.utils import Struct
+from pyfft_tpu_torch.config import default_device
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -19,8 +19,16 @@ from pyfft_tpu import segmentation as jseg
 import pyfft_tpu_torch as pt
 import pyfft_tpu_torch.spectral as psp
 from pyfft_tpu_torch import segmentation as pseg
+from pyfft_tpu_torch.config import default_device
 
 _INFO_SKIP = {"winparams"}
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def _close(a, b, rtol, floor, what):

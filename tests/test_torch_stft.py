@@ -27,6 +27,14 @@ import pyfft_tpu_torch as pt
 from pyfft_tpu_torch import segmentation as pseg
 from pyfft_tpu_torch.ops import stft as ps
 from pyfft_tpu_torch.ops import transform as ptr
+from pyfft_tpu_torch.config import default_device
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def _sigs(nt, ny, cplx, seed):

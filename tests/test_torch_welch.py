@@ -15,6 +15,14 @@ from pyfft_tpu.ops.pallas_welch3 import welch_pallas3_twosided as jax_twosided
 
 from pyfft_tpu_torch.ops import welch as pw
 from test_pallas_welch import _welch_oracle
+from pyfft_tpu_torch.config import default_device
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def _geometry_inputs(nch, nt, nwins, hop, ntaps, seed):

@@ -26,6 +26,14 @@ from pyfft_tpu.ops import pallas_welch as jpw
 import pyfft_tpu_torch as pt
 from pyfft_tpu_torch import spectral as psp
 from pyfft_tpu_torch.ops import welch_v1 as pv
+from pyfft_tpu_torch.config import default_device
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    """The port runs on the CPU only when asked to: these tests ask."""
+    with default_device("cpu"):
+        yield
 
 
 def _inputs(nch, nt, nwins, seed, dtype=np.float32):
