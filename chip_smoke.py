@@ -12,7 +12,12 @@ paths, then drives the main paths:
   samples with nwins = 4096 through ``fft_pwelch`` (phases 4-5);
 - the STFT path through the ``fftanal`` class at the size of bench
   configuration 2, a 2**24-sample chirp with nwins = 2048 and 50% overlap,
-  and a two-signal ``fftanal`` with nwins = 4096 (phases 7-8);
+  and a two-signal ``fftanal`` with nwins = 4096 (phases 7-8), after
+  kernel C against its plain version in five cases (phase 6: config 2,
+  complex, nine signals, an odd segment count, and segments of alternating
+  amplitude held per segment), each with its plain version (and at config
+  2 ``torch.stft``) timed 25 times and one call of each traced under
+  ``torch.profiler``;
 - the Hilbert demodulation path through ``hilbert_mod.envelope_phase`` at
   the size of bench configuration 4, a 2**24-sample AM signal at fs = 1 MHz
   (phase 10), after kernel D against its plain version (phase 9); then a
@@ -148,6 +153,45 @@ def time_runs(fn, reps=5):
 def time_ms(fn, reps=5):
     """Median of `reps` timed runs after one warm-up, by CUDA events."""
     return statistics.median(time_runs(fn, reps))
+
+
+def trace_call(fn, kernel):
+    """One call of ``fn`` under ``torch.profiler``: its wall (ms, host clock
+    to a synchronize), the device's busy time and idle share, the device
+    time of the kernels whose names hold ``kernel``, the count of pageable
+    host -> device copies, and the top device entries."""
+    import torch
+    from pyfft_tpu_torch.utils import profiling
+    cuda_t = torch.autograd.DeviceType.CUDA
+    with tempfile.TemporaryDirectory() as logdir, \
+            profiling.trace(logdir) as tr:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms, pageable = {}, 0
+    for e in tr.key_averages():
+        if e.device_type != cuda_t or getattr(e, "is_user_annotation", False):
+            continue
+        dev_ms[e.key] = e.self_device_time_total / 1e3
+        if "HtoD" in e.key and "Pageable" in e.key:
+            pageable += e.count
+    busy = sum(dev_ms.values())
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                device_idle_share=1 - busy / wall,
+                kernel_ms=sum(v for k, v in dev_ms.items() if kernel in k),
+                h2d_pageable=pageable,
+                top_device_ms=dict(sorted(dev_ms.items(),
+                                          key=lambda kv: -kv[1])[:6]))
+
+
+def seg_rel_err(got, ref):
+    """Per segment of ``(nsig, navr, nwins)`` spectra: max |got - ref| over
+    the segment's bins / max |ref| over them; the largest over segments."""
+    ref = ref.to(got.device)
+    err = (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+    return float(err.max().item())
 
 
 def smi_query(fields):
@@ -486,12 +530,21 @@ def main():
     iq = (np.exp(2j * np.pi * 97e3 * tb)
           + 0.3 * (rng.standard_normal(nt_b)
                    + 1j * rng.standard_normal(nt_b))).astype(np.complex64)
+    # bursty: noise whose odd segments of 1024 have 1/10 (and, reported
+    # without a check, 1/100) of their neighbours' amplitude
+    noise_e = rng.standard_normal(nt_b).astype(np.float32)
+    odd = (np.arange(nt_b) // 1024) % 2 == 1
+    burst = {g: torch.from_numpy(np.where(odd, noise_e / g, noise_e)
+                                 .astype(np.float32)).to(dev)
+             for g in (10, 100)}
     cases = (("a_config2_chirp", torch.from_numpy(chirp2).to(dev), None,
               2048, 1024),
              ("b_iq_complex64", torch.from_numpy(iq).to(dev), None, 4096,
               1024),
              ("c_reference_and_8_channels", x0[:nt_b], y0[:, :nt_b], 512,
-              256))
+              256),
+             ("d_odd_navr", x0[:nt_b + 1000], None, 2048, 1024),
+             ("e_bursty", burst[10], None, 1024, 1024))
     for name, x, y, nwins, hop in cases:
         nt = x.shape[0]
         navr = (nt - nwins) // hop + 1
@@ -501,30 +554,67 @@ def main():
         ref = stft.stft_plain(x, y, win, 1.0, **kw)
         err, scale = rel_err(got, ref)
         max_abs = err * scale
+        extra = {}
+        if name.startswith("e_"):
+            extra["seg_rel_err"] = seg_rel_err(got, ref)
+            g100 = burst[100]
+            extra["seg_rel_err_1_to_100"] = seg_rel_err(
+                stft.stft_cuda(g100, None, win, 1.0, **kw),
+                stft.stft_plain(g100, None, win, 1.0, **kw))
         del got, ref
-        ms = time_ms(lambda: stft.stft_cuda(x, y, win, 1.0, **kw))
-        plain_ms = time_ms(lambda: stft.stft_plain(x, y, win, 1.0, **kw))
-        nsig = 1 + (0 if y is None else y.shape[0])
-        emit("stft_vs_plain", case=name, nsig=nsig, nt=nt, nwins=nwins,
-             hop=hop, navr=navr, dtype=str(x.dtype), rel_err=err,
-             max_abs_err=max_abs, tol=STFT_TOL, ms=ms, plain_ms=plain_ms,
-             out_mb=8 * nsig * navr * nwins / 1e6)
-        check(err <= STFT_TOL, f"kernel C {name}: rel err {err} > {STFT_TOL}")
+        runs = {"ms": time_runs(lambda: stft.stft_cuda(x, y, win, 1.0, **kw),
+                                25),
+                "plain_ms": time_runs(lambda: stft.stft_plain(
+                    x, y, win, 1.0, **kw), 25)}
+        prof = {"kernel": trace_call(lambda: stft.stft_cuda(x, y, win, 1.0,
+                                                            **kw),
+                                     "stft_kernel"),
+                "plain": trace_call(lambda: stft.stft_plain(x, y, win, 1.0,
+                                                            **kw),
+                                    "stft_kernel")}
+        lib = None
         if name.startswith("a_"):
             # library: torch.stft of the mean-removed signal
             xm = x - x.mean()
             wt = torch.as_tensor(win, dtype=torch.float32, device=dev)
-            lib_ms = time_ms(lambda: torch.stft(
-                xm, nwins, hop_length=hop, window=wt, center=False,
-                onesided=False, return_complex=True))
+
+            def lib():
+                return torch.stft(xm, nwins, hop_length=hop, window=wt,
+                                  center=False, onesided=False,
+                                  return_complex=True)
+            runs["library_ms"] = time_runs(lib, 25)
+            prof["library"] = trace_call(lib, "stft_kernel")
+        ms, plain_ms = (statistics.median(runs[k]) for k in ("ms", "plain_ms"))
+        lib_ms = statistics.median(runs["library_ms"]) if lib else None
+        nsig = 1 + (0 if y is None else y.shape[0])
+        emit("stft_vs_plain", case=name, nsig=nsig, nt=nt, nwins=nwins,
+             hop=hop, navr=navr, dtype=str(x.dtype), rel_err=err,
+             max_abs_err=max_abs, tol=STFT_TOL, ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms,
+             quartiles_ms={k: statistics.quantiles(v, n=4)
+                           for k, v in runs.items()},
+             out_mb=8 * nsig * navr * nwins / 1e6, **extra)
+        emit("stft_profile", case=name, **prof)
+        check(err <= STFT_TOL, f"kernel C {name}: rel err {err} > {STFT_TOL}")
+        if "seg_rel_err" in extra:
+            check(extra["seg_rel_err"] <= STFT_TOL,
+                  f"kernel C {name}: per-segment rel err "
+                  f"{extra['seg_rel_err']} > {STFT_TOL}")
+        check(prof["kernel"]["kernel_ms"] > 0, "the profiler saw no "
+              "stft_kernel")
+        check(prof["kernel"]["h2d_pageable"] == 0,
+              f"kernel C {name}: {prof['kernel']['h2d_pageable']} pageable "
+              f"host -> device copies in a call after the first")
+        if name.startswith("a_"):
             del xm
             kernels["stft"] = dict(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms,
+                kernel_device_ms=prof["kernel"]["kernel_ms"],
                 **bound(navr * (2 * nwins
                                 + profiling.fft_flops(nwins, real=True)),
                         4.0 * nt + 8.0 * navr * nwins))
-    del cases, iq, x, y
+    del cases, iq, x, y, burst, noise_e, odd
     torch.cuda.empty_cache()
 
     # ---- second main path: counts from here on --------------------------- #
@@ -1048,29 +1138,11 @@ def main():
                                            library_ms=None, **b14)
         # one traced call of each: its wall, the device's busy time by
         # kernel or copy, and the share of the wall the device was idle
-        cuda_t = torch.autograd.DeviceType.CUDA
         prof14 = {}
         for what, fn in (("kernel_h", packed), ("kernel_b_nch0", kernel_b),
                          ("plain", plain)):
-            with tempfile.TemporaryDirectory() as logdir, \
-                    profiling.trace(logdir) as tr:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            dev_ms = {e.key: e.self_device_time_total / 1e3
-                      for e in tr.key_averages()
-                      if e.device_type == cuda_t
-                      and not getattr(e, "is_user_annotation", False)}
-            busy = sum(dev_ms.values())
-            prof14[what] = dict(
-                wall_ms=wall, device_busy_ms=busy,
-                device_idle_share=1 - busy / wall,
-                welch_kernel_ms=sum(v for k, v in dev_ms.items()
-                                    if "welch_kernel" in k),
-                top_device_ms=dict(sorted(dev_ms.items(),
-                                          key=lambda kv: -kv[1])[:6]))
+            prof14[what] = trace_call(fn, "welch_kernel")
+            prof14[what]["welch_kernel_ms"] = prof14[what].pop("kernel_ms")
         emit("welch_packed_profile", config=1, ntaps=ntaps, **prof14)
         check(prof14["kernel_h"]["welch_kernel_ms"] > 0
               and prof14["kernel_b_nch0"]["welch_kernel_ms"] > 0,

@@ -80,8 +80,10 @@ waits for later slices (ROADMAP.md).
 __version__ = "0.1.0"
 
 from . import utils
-# `windows` is a callable module, as in the JAX package
+# `windows` is a callable module, as in the JAX package, and `windows_mod`
+# its alias there
 from . import windows
+from . import windows as windows_mod
 from .windows import get_window
 from . import segmentation
 from . import ops
@@ -95,6 +97,7 @@ from .spectral import (
     welch_filtered_cross_spectra,
     csd_oracle,
     resolve_fft_backend,
+    backend_supports_complex,
 )
 from .fftanal import fftanal, stft_segments
 from . import spectrogram
@@ -145,6 +148,7 @@ from .utils.detrend import (
 
 __all__ = [
     "windows",
+    "windows_mod",
     "get_window",
     "fftanal",
     "stft_segments",
@@ -203,6 +207,7 @@ __all__ = [
     "welch_filtered_cross_spectra",
     "csd_oracle",
     "resolve_fft_backend",
+    "backend_supports_complex",
     "detrend_none",
     "detrend_mean",
     "detrend_linear",

@@ -15,23 +15,17 @@ import numpy as np
 
 from .utils.interp import sliding_window_1d
 from .filters import oaconvolve
-from .spectral import _device, _np, _tensor
 
 
 __all__ = ["ccf", "ccf_sh", "align_signals", "conv", "corr", "fftconv",
            "fftcorr", "convolve_fft", "cross_correlation_fft"]
 
 
-def _convolve(x, taps, mode, device):
-    """:func:`oaconvolve` of ``x`` on ``device``; NumPy out."""
-    return _np(oaconvolve(_tensor(x, _device(device, x)), taps, mode=mode))
-
-
 def _correlate_full(a, b, device=None):
     """``numpy.correlate(a, b, 'full')`` via overlap-save convolution."""
     a = np.asarray(a)
     b = np.asarray(b)
-    return _convolve(a, np.conj(b)[::-1], "full", device)
+    return oaconvolve(a, np.conj(b)[::-1], "full", device=device)
 
 
 def ccf(x1, x2, fs, device=None):
@@ -92,7 +86,7 @@ def convolve_fft(a, b, mode="valid", device=None):
     if len(b) > len(a):
         a, b = b, a
     c = _preconvolve_fft(a, b)
-    return _convolve(c, a, mode, device)
+    return oaconvolve(c, a, mode, device=device)
 
 
 def cross_correlation_fft(a, b, mode="valid", device=None):
@@ -102,7 +96,7 @@ def cross_correlation_fft(a, b, mode="valid", device=None):
     if len(b) > len(a):
         a, b = b, a
     c = _preconvolve_fft(a, b)
-    return _convolve(c, a[::-1], mode, device)
+    return oaconvolve(c, a[::-1], mode, device=device)
 
 
 def align_signals(a, b, device=None):

@@ -5,83 +5,194 @@
 // (nt % 128 != 0); one kernel that takes any nt covers both.  There is no
 // filter on this path (the JAX pipeline runs it with m = 0, nbands = 0).
 //
-// For signal c and segment s (start s*hop, s < navr) the block forms
+// For signal c and segment s (start s*hop, s < navr) it forms
 //   v[n] = (sig_c[start+n] - mean_c) * win[n],   n < N = nwins,
 // and writes norm * DFT(v) for all N bins, in natural order, to
 // out[c, s, :].  Real signals (cplx = 0) are rows of float32; complex ones
 // (cplx = 1) are interleaved complex64 with one (re, im) mean pair.
 //
-// What bounds it on the card: per segment about 5*N*log2(N) flops of FFT,
-// all through shared memory with one barrier per radix-2 stage, against
-// reading N samples and writing 8*N bytes.  At the shape of bench config 2
-// (2^24 samples, N = 2048, hop 1024) the result is 268 MB, more than four
-// times the 64 MB signal, so device memory is the floor (about 0.1 ms at
-// 3.35 TB/s) and the shared-memory passes (11 stages of N/2 butterflies)
-// are the likely cost.
-// Design: grid (group of segments) x (signal); per segment one block loads
-// the windowed, detrended samples straight from device memory into a
-// complex shared buffer in bit-reversed order, runs fft_radix2 (fft.cuh,
-// shared with kernel B; twiddles from a float64 host table) and stores the
-// N bins with coalesced 8-byte stores.  Nothing is accumulated, so there
-// is no second pass.  Shared memory is 8*N bytes, at most 128 KB.
+// What bounds it on the card: device memory.  At the shape of bench config
+// 2 (2^24 samples, N = 2048, hop 1024) it reads the 64 MB signal and writes
+// 268 MB of spectra, about 0.1 ms at 3.35 TB/s; the FFTs are about 0.9
+// GFLOP (0.014 ms at the float32 peak) and their shared-memory traffic a
+// few hundred MB.  So the design keeps enough transforms in flight to
+// stream the output at the memory's rate, with little arithmetic or
+// synchronisation between a load and its stores:
+// - two real segments per complex FFT: segments 2p and 2p+1 of one signal
+//   go in as Z = a + i b, and each bin of both comes out of the one
+//   spectrum, A_k = (Z_k + conj Z_{N-k}) / 2, B_k = (Z_k - conj Z_{N-k}) /
+//   2i (float32).  Each thread writes bin k of both segments, so both
+//   stores run in natural order.  With an odd navr the last segment goes
+//   alone (zero imaginary part); complex signals take one segment per FFT.
+//   Pairs never cross signals.
+// - the FFT is fft_reg.cuh's register-radix Stockham transform: N/16
+//   threads with 16 points each, log16(N) passes (16.16.8 at N = 2048)
+//   through padded shared memory, twiddles from a float64 table read
+//   through L1, natural order out.
+// - the first pass loads its 16 points per thread straight from device
+//   memory in its own stride (sample t + r*N/16, coalesced across
+//   threads), with the mean and the window applied on the way in; each
+//   thread stores two adjacent bins at a time, coalesced 16-byte streaming
+//   stores (__stcs: nothing reads the spectra back here).
+// - persistent blocks of max(N/16, 128) threads (several transforms per
+//   block below N = 2048) walk over the (signal, pair) items; several
+//   blocks share an SM.  Shared memory is 17*N/16 float2 per transform
+//   (136 KB at N = 16384).
 #include <cuda_runtime.h>
 
-#include "fft.cuh"
+#include "fft_reg.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-constexpr int kMinN = 16;
-constexpr int kMaxN = 16384;
+constexpr int kMinLogN = 4;
+constexpr int kMaxLogN = 14;
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kMaxThreads)
+// Threads of a block: one transform of N/16 threads, or several of them
+// up to 128.
+__host__ __device__ constexpr int block_threads(int logn) {
+    return (1 << logn) / fftreg::kPoints > 128
+               ? (1 << logn) / fftreg::kPoints : 128;
+}
+
+__host__ __device__ constexpr size_t smem_bytes(int logn) {
+    return sizeof(float2) *
+           (block_threads(logn) / ((1 << logn) / fftreg::kPoints)) *
+           fftreg::pad(1 << logn);
+}
+
+// Blocks an SM should hold at once: about 768 threads.
+__host__ __device__ constexpr int min_blocks(int logn) {
+    return block_threads(logn) >= 768 ? 1 : 768 / block_threads(logn);
+}
+
+template <int LOGN>
+__global__ void __launch_bounds__(block_threads(LOGN), min_blocks(LOGN))
 stft_kernel(const float* __restrict__ x, const float* __restrict__ y,
-            long long y_row_stride, int cplx,
+            long long y_row_stride, int cplx, int nsig,
             const float* __restrict__ means, const float* __restrict__ win,
-            const float2* __restrict__ tw, float2* __restrict__ out, int N,
-            int logN, int hop, int navr, int seg_per_group, float norm) {
+            const float2* __restrict__ tw, float2* __restrict__ out, int hop,
+            int navr, float norm) {
+    constexpr int N = 1 << LOGN;
+    constexpr int P = fftreg::kPoints;
+    constexpr int T = N / P;
+    constexpr int F = block_threads(LOGN) / T;
     extern __shared__ __align__(16) unsigned char smem[];
-    float2* buf = reinterpret_cast<float2*>(smem);
-    const int c = blockIdx.y;
-    const int T = blockDim.x;
-    const int estride = cplx ? 2 : 1;
-    const float* sig =
-        c ? y + static_cast<long long>(c - 1) * y_row_stride : x;
-    const float m_re = means[estride * c];
-    const float m_im = cplx ? means[2 * c + 1] : 0.f;
+    const int slot = threadIdx.x / T;
+    const int t = threadIdx.x % T;
+    float2* spec = reinterpret_cast<float2*>(smem) + slot * fftreg::pad(N);
+    const float half_norm = 0.5f * norm;
 
-    const int s0 = blockIdx.x * seg_per_group;
-    const int s1 = min(navr, s0 + seg_per_group);
-    for (int s = s0; s < s1; ++s) {
+    // items: (signal, segment pair) for real signals, the last segment of
+    // an odd navr alone; (signal, segment) for complex ones
+    const int per_sig = cplx ? navr : (navr + 1) / 2;
+    const long long items = static_cast<long long>(nsig) * per_sig;
+    for (long long base = static_cast<long long>(blockIdx.x) * F;
+         base < items; base += static_cast<long long>(gridDim.x) * F) {
+        const long long item = base + slot;
+        const bool active = item < items;
+        const int c = active ? static_cast<int>(item / per_sig) : 0;
+        const int p = active ? static_cast<int>(item % per_sig) : 0;
+        const int s = cplx ? p : 2 * p;
+        const bool pair = !cplx && s + 1 < navr;
+        const float* sig =
+            c ? y + static_cast<long long>(c - 1) * y_row_stride : x;
         const long long start = static_cast<long long>(s) * hop;
-        if (cplx) {
+
+        float2 v[P];
+        if (!active) {
+#pragma unroll
+            for (int r = 0; r < P; ++r) v[r] = make_float2(0.f, 0.f);
+        } else if (cplx) {
             const float2* z = reinterpret_cast<const float2*>(sig) + start;
-            for (int n = threadIdx.x; n < N; n += T) {
+            const float m_re = means[2 * c], m_im = means[2 * c + 1];
+#pragma unroll
+            for (int r = 0; r < P; ++r) {
+                const int n = t + r * T;
                 const float w = __ldg(win + n);
-                const float2 v = __ldg(z + n);
-                buf[bitrev(n, logN)] =
-                    make_float2((v.x - m_re) * w, (v.y - m_im) * w);
+                const float2 u = __ldg(z + n);
+                v[r] = make_float2((u.x - m_re) * w, (u.y - m_im) * w);
             }
         } else {
-            const float* r = sig + start;
-            for (int n = threadIdx.x; n < N; n += T) {
-                buf[bitrev(n, logN)] =
-                    make_float2((__ldg(r + n) - m_re) * __ldg(win + n), 0.f);
+            const float* a = sig + start;
+            const float m = means[c];
+#pragma unroll
+            for (int r = 0; r < P; ++r) {
+                const int n = t + r * T;
+                const float w = __ldg(win + n);
+                v[r] = make_float2((__ldg(a + n) - m) * w,
+                                   pair ? (__ldg(a + hop + n) - m) * w : 0.f);
             }
         }
-        __syncthreads();
-        fft_radix2(buf, tw, N, logN);
-        float2* o = out + (static_cast<long long>(c) * navr + s) * N;
-        for (int k = threadIdx.x; k < N; k += T) {
-            const float2 z = buf[k];
-            o[k] = make_float2(z.x * norm, z.y * norm);
+
+        fftreg::transform<LOGN>(v, spec, tw, t);
+
+        // bins k and k + 1 of both segments (of the one), 16-byte stores
+        if (active) {
+            float2* o = out + (static_cast<long long>(c) * navr + s) * N;
+#pragma unroll
+            for (int r = 0; r < P / 2; ++r) {
+                const int k = 2 * (t + r * T);
+                const float2 z0 = spec[fftreg::pad(k)];
+                const float2 z1 = spec[fftreg::pad(k + 1)];
+                float4* oa = reinterpret_cast<float4*>(o + k);
+                if (pair) {
+                    const float2 m0 = spec[fftreg::pad((N - k) & (N - 1))];
+                    const float2 m1 = spec[fftreg::pad(N - k - 1)];
+                    __stcs(oa, make_float4((z0.x + m0.x) * half_norm,
+                                           (z0.y - m0.y) * half_norm,
+                                           (z1.x + m1.x) * half_norm,
+                                           (z1.y - m1.y) * half_norm));
+                    __stcs(reinterpret_cast<float4*>(o + N + k),
+                           make_float4((z0.y + m0.y) * half_norm,
+                                       (m0.x - z0.x) * half_norm,
+                                       (z1.y + m1.y) * half_norm,
+                                       (m1.x - z1.x) * half_norm));
+                } else {
+                    __stcs(oa, make_float4(z0.x * norm, z0.y * norm,
+                                           z1.x * norm, z1.y * norm));
+                }
+            }
         }
-        __syncthreads();
     }
 }
 
-int threads_for(int N) {
-    return N / 4 < 32 ? 32 : (N / 4 > kMaxThreads ? kMaxThreads : N / 4);
+template <int LOGN>
+cudaError_t launch(const float* x, const float* y, long long y_row_stride,
+                   int cplx, int nsig, const float* means, const float* win,
+                   const float2* tw, float2* out, int hop, int navr,
+                   float norm, cudaStream_t stream) {
+    constexpr int threads = block_threads(LOGN);
+    constexpr int F = threads / ((1 << LOGN) / fftreg::kPoints);
+    constexpr size_t smem = smem_bytes(LOGN);
+    auto kernel = stft_kernel<LOGN>;
+    // resident blocks on the whole card, found once per device (the
+    // launch's host work is a good part of a call's time)
+    static int resident[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (resident[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        if ((e = cudaFuncSetAttribute(
+                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                 static_cast<int>(smem))) != cudaSuccess ||
+            (e = cudaDeviceGetAttribute(
+                 &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm, kernel, threads, smem)) != cudaSuccess)
+            return e;
+        if (per_sm < 1) return cudaErrorInvalidConfiguration;
+        resident[dev] = per_sm * sms;
+    }
+    const long long per_sig = cplx ? navr : (navr + 1) / 2;
+    const long long blocks = (nsig * per_sig + F - 1) / F;
+    const long long cap = resident[dev];
+    kernel<<<static_cast<unsigned>(blocks < cap ? blocks : cap), threads,
+             smem, stream>>>(x, y, y_row_stride, cplx, nsig, means, win, tw,
+                             out, hop, navr, norm);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -90,32 +201,36 @@ int threads_for(int N) {
 // floats (complex rows: twice the complex stride).  cplx 0: float32 rows;
 // cplx 1: interleaved complex64 rows, 8-byte aligned.  means: nsig *
 // (1 + cplx) float32, first signal first.  win: (nwins,) float32.  tw:
-// (nwins/2,) complex64.  out: (nsig, navr, nwins) complex64.
-// Returns cudaGetLastError() after the launch (or the first error).
+// (nwins/2,) complex64, exp(-2 pi i m / nwins).  out: (nsig, navr, nwins)
+// complex64.  Returns cudaGetLastError() after the launch (or the first
+// error).
 extern "C" int pyfft_stft(const float* x, const float* y,
                           long long y_row_stride, int cplx, int nsig,
                           const float* means, const float* win,
                           const void* tw, void* out, int nwins, int hop,
-                          int navr, int ngroups, float norm,
-                          void* stream_ptr) {
-    const int N = nwins;
-    if (N < kMinN || N > kMaxN || (N & (N - 1)) || hop < 1 || hop > N ||
-        navr < 1 || ngroups < 1 || nsig < 1 || nsig > 65535 ||
+                          int navr, float norm, void* stream_ptr) {
+    int logN = 0;
+    while ((1 << logN) < nwins && logN <= kMaxLogN) ++logN;
+    if ((1 << logN) != nwins || logN < kMinLogN || logN > kMaxLogN ||
+        hop < 1 || hop > nwins || navr < 1 || nsig < 1 || nsig > 65535 ||
         (cplx != 0 && cplx != 1))
         return static_cast<int>(cudaErrorInvalidValue);
-    int logN = 0;
-    while ((1 << logN) < N) ++logN;
-    const size_t smem = sizeof(float2) * N;
-    cudaError_t e = cudaFuncSetAttribute(
-        stft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int spg = (navr + ngroups - 1) / ngroups;
-    const dim3 grid(static_cast<unsigned>((navr + spg - 1) / spg),
-                    static_cast<unsigned>(nsig));
-    stft_kernel<<<grid, threads_for(N), smem,
-                  static_cast<cudaStream_t>(stream_ptr)>>>(
-        x, y, y_row_stride, cplx, means, win, static_cast<const float2*>(tw),
-        static_cast<float2*>(out), N, logN, hop, navr, spg, norm);
-    return static_cast<int>(cudaGetLastError());
+    const float2* t = static_cast<const float2*>(tw);
+    float2* o = static_cast<float2*>(out);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+    cudaError_t e = cudaErrorInvalidValue;
+    switch (logN) {
+#define PYFFT_STFT_CASE(L)                                                  \
+    case L:                                                                 \
+        e = launch<L>(x, y, y_row_stride, cplx, nsig, means, win, t, o, hop, \
+                      navr, norm, s);                                       \
+        break;
+        PYFFT_STFT_CASE(4) PYFFT_STFT_CASE(5) PYFFT_STFT_CASE(6)
+        PYFFT_STFT_CASE(7) PYFFT_STFT_CASE(8) PYFFT_STFT_CASE(9)
+        PYFFT_STFT_CASE(10) PYFFT_STFT_CASE(11) PYFFT_STFT_CASE(12)
+        PYFFT_STFT_CASE(13) PYFFT_STFT_CASE(14)
+#undef PYFFT_STFT_CASE
+        default: break;
+    }
+    return static_cast<int>(e);
 }

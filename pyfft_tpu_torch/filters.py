@@ -15,9 +15,11 @@
   where ``f[b]`` is the block's forced state.  All of it is batched
   matmuls on the input's device.  :func:`filtfilt` keeps scipy's
   ``method='pad'``, odd extension and ``lfilter_zi`` initial conditions.
-- FIR: :func:`oaconvolve` (overlap-save on ``torch.fft``, tensors out),
+- FIR: :func:`oaconvolve` (overlap-save on ``torch.fft``),
   :func:`fir_filter` (``'os'`` or ``'pallas'``, kernel A on a CUDA
-  tensor), :func:`fir_filtfilt`; the tile-layout names
+  tensor), :func:`fir_filtfilt`, all NumPy out; the package's own callers
+  use the tensor-in, tensor-out ``_oaconvolve`` and ``_fir_filter``.  The
+  tile-layout names
   (:func:`tile_rows`, :func:`untile_rows`, :func:`fir_filter_tiled`) are
   thin aliases of :mod:`pyfft_tpu_torch.ops.fir`.
 - Resampling: :func:`upsample`, :func:`downsample`,
@@ -436,15 +438,15 @@ def _os_plan(nx, ntaps, nfft=None):
 
 
 
-def oaconvolve(x, taps, mode="full", nfft=None):
-    """Overlap-save FIR convolution along the last axis of a real tensor.
+def _oaconvolve(x, taps, mode="full", nfft=None):
+    """Overlap-save FIR convolution along the last axis of the real tensor
+    ``x``; a tensor out.
 
     Block the input, rFFT each block, multiply by the tap response,
     inverse-transform and drop the ``ntaps-1`` wrap-around samples, batched
     over blocks and channels on ``x``'s device and in its floating dtype
     (integers are promoted to float64).  ``mode`` follows numpy.convolve.
     """
-    x = torch.as_tensor(x)
     if not x.is_floating_point():
         x = x.to(torch.float64)
     taps = np.asarray(taps, dtype=np.float64)
@@ -468,21 +470,34 @@ def oaconvolve(x, taps, mode="full", nfft=None):
     raise ValueError(f"unknown mode {mode!r}")
 
 
-def fir_filter(x, taps, axis=-1, backend=None):
-    """Causal FIR filtering ('same' alignment as lfilter) of a tensor.
+def oaconvolve(x, taps, mode="full", nfft=None, device=None):
+    """Overlap-save FIR convolution along the last axis (:func:`_oaconvolve`)
+    on ``device``; NumPy out, as in the JAX package."""
+    return _np(_oaconvolve(_tensor(x, _device(device, x)), taps, mode, nfft))
+
+
+def _fir_filter(x, taps, axis=-1, backend=None):
+    """Causal FIR filtering ('same' alignment as lfilter) of the tensor
+    ``x``; the result has ``x``'s shape, dtype and device.
 
     ``backend``: 'os' (overlap-save, default) or 'pallas' (kernel A on a
-    CUDA tensor, taps <= 1024; its plain version on a CPU tensor).  The
-    result has ``x``'s shape, dtype and device.
+    CUDA tensor, taps <= 1024; its plain version on a CPU tensor).
     """
-    x = torch.movedim(torch.as_tensor(x), axis, -1)
+    x = torch.movedim(x, axis, -1)
     if backend == "pallas":
         from .ops.fir import fir_pallas
         y = fir_pallas(x.reshape(-1, x.shape[-1]), taps)
         y = y.reshape(x.shape).to(x.dtype)
     else:
-        y = oaconvolve(x, taps, mode="full")[..., :x.shape[-1]]
+        y = _oaconvolve(x, taps, mode="full")[..., :x.shape[-1]]
     return torch.movedim(y, -1, axis)
+
+
+def fir_filter(x, taps, axis=-1, backend=None, device=None):
+    """Causal FIR filtering (:func:`_fir_filter`) on ``device``; NumPy out,
+    as in the JAX package."""
+    return _np(_fir_filter(_tensor(x, _device(device, x)), taps, axis,
+                           backend))
 
 
 def fir_filter_tiled(xr, taps, precision=None):
@@ -506,7 +521,7 @@ def fir_filtfilt(x, taps, axis=-1, device=None):
     left = 2 * x[..., :1] - x[..., 1:pad + 1].flip(-1)
     right = 2 * x[..., -1:] - x[..., -pad - 1:-1].flip(-1)
     ext = torch.cat([left, x, right], dim=-1)
-    y = oaconvolve(ext, taps, mode="full")
+    y = _oaconvolve(ext, taps, mode="full")
     delay = (ntaps - 1) // 2
     y = y[..., pad + delay:pad + delay + x.shape[-1]]
     return _np(torch.movedim(y, -1, axis))
@@ -590,7 +605,7 @@ def smooth(x, window_len=11, window="hanning"):
         w = np.ones(window_len, "d")
     else:
         w = getattr(np, window)(window_len)
-    y = _np(oaconvolve(s, w / w.sum(), mode="valid"))
+    y = _np(_oaconvolve(torch.as_tensor(s), w / w.sum(), mode="valid"))
     return y[(window_len // 2 - 1):-(window_len // 2)]
 
 
@@ -660,8 +675,8 @@ def resample_poly(x, up, down, axis=-1, taps=None, device=None):
 
     lead = xm.shape[:-1]
     x2 = xm.reshape(-1, n_in)
-    phases = [oaconvolve(x2, h[p::up] if len(h[p::up]) else np.zeros(1),
-                         mode="full") for p in range(up)]
+    phases = [_oaconvolve(x2, h[p::up] if len(h[p::up]) else np.zeros(1),
+                          mode="full") for p in range(up)]
     # interleave: y_full[q*up + p] = phases[p][q]
     qmax = max(ph.shape[-1] for ph in phases)
     y_full = x2.new_zeros(x2.shape[:-1] + (qmax * up,),

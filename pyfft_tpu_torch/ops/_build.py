@@ -43,7 +43,7 @@ _SIGNATURES = {
     "pyfft_welch_smem_bytes": ([_I, _I], _LL),
     "pyfft_welch": ([_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                      _I, _I, _I, _I, _I, _D, _P], _I),
-    "pyfft_stft": ([_P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+    "pyfft_stft": ([_P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                     ctypes.c_float, _P], _I),
     "pyfft_hilbert": ([_P, _P, _P, _I, _I, _P], _I),
     "pyfft_hilbert_blocks_per_sm": ([_I], _I),

@@ -9,10 +9,12 @@ on ``navr`` segments of ``nwins`` samples every ``hop``; returns the DFT of
 every segment, all ``nwins`` bins in natural order, scaled by ``norm``.
 There is no filter on this path.
 
-- On CUDA tensors :func:`stft_cuda` launches kernel C (``csrc/stft.cu``).
-  Its means come from kernel B's prologue (``welch._means`` with the taps
-  ``[1.0]``): float32 block sums added in float64, with no float64 copy of
-  the signal.
+- On CUDA tensors :func:`stft_cuda` launches kernel C (``csrc/stft.cu``:
+  two real segments per complex FFT on the register-radix Stockham FFT of
+  ``csrc/fft_reg.cuh``).  Its means are ``welch._row_sums / nt``: float32
+  block sums added in float64, with no float64 copy of the signal; the
+  window goes to the card once per (content, device).  After the first
+  call with a window, a call copies nothing from the host.
 - On CPU tensors :func:`stft_plain` runs: mean -> frames -> window ->
   ``torch.fft.fft`` -> times ``norm``, in the input's dtype.
 
@@ -22,15 +24,17 @@ Domain of the kernel (re-derived for the card; the TPU's lane, hop and
 channel-count limits do not apply): ``nwins`` a power of two in
 16..16384, any hop in 1..nwins, any ``nt >= (navr-1)*hop + nwins``, any
 number of signals (up to 65535), float32 or complex64, ``detrend_style``
-in {0, 1}.  Its shared memory is ``8*nwins`` bytes, at most 128 KB.
+in {0, 1}.  Its shared memory is at most 136 KB a block (``nwins`` 16384).
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from . import _build
-from .welch import _groups, _means, _twiddles
+from .welch import _row_sums, _twiddles
 from .. import segmentation as seg
 from ..spectral import _device, _tensor
 
@@ -89,6 +93,29 @@ def stft_plain(x, y, win, norm, *, navr, nwins, hop, detrend_style=1):
 # Kernel C
 # --------------------------------------------------------------------------- #
 
+@lru_cache(maxsize=16)
+def _window(data: bytes, device: str) -> torch.Tensor:
+    """The float32 window whose bytes are ``data``, on ``device`` (one host
+    -> device copy per content and device)."""
+    return torch.frombuffer(bytearray(data), dtype=torch.float32).to(device)
+
+
+def _means(x, y, detrend_style, cplx):
+    """Kernel C's ``means`` operand, float32: each signal's mean (a re, im
+    pair for complex signals), first signal first; zeros without detrend.
+    Strided views only (a complex ``x`` as its (re, im) rows), so nothing
+    is copied."""
+    if detrend_style != 1:
+        return torch.zeros((1 + y.shape[0]) * (2 if cplx else 1),
+                           dtype=torch.float32, device=x.device)
+    sums = _row_sums(torch.view_as_real(x).T if cplx else x[None])
+    if y.shape[0]:
+        ys = (torch.stack([_row_sums(y.real), _row_sums(y.imag)],
+                          dim=-1).reshape(-1) if cplx else _row_sums(y))
+        sums = torch.cat([sums, ys])
+    return (sums / x.shape[-1]).to(torch.float32)
+
+
 def stft_cuda(x, y, win, norm, *, navr, nwins, hop, detrend_style=1):
     """Launch kernel C.  ``x (nt,)`` contiguous and ``y (nch, nt)`` (or
     None) with unit stride along time, all float32 or all complex64, on one
@@ -120,15 +147,14 @@ def stft_cuda(x, y, win, norm, *, navr, nwins, hop, detrend_style=1):
         raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
                          f"fit {nt} samples")
     dev = x.device
-    means = _means(x, y, np.ones(1), detrend_style, cplx)
-    w = torch.as_tensor(np.asarray(win), dtype=torch.float32,
-                        device=dev).contiguous()
-    if w.shape != (nwins,):
-        raise ValueError(f"window of shape {tuple(w.shape)}, need ({nwins},)")
+    win32 = np.ascontiguousarray(np.asarray(win), dtype=np.float32)
+    if win32.shape != (nwins,):
+        raise ValueError(f"window of shape {win32.shape}, need ({nwins},)")
+    w = _window(win32.tobytes(), str(dev))
+    means = _means(x, y, detrend_style, cplx)
     xf = torch.view_as_real(x) if cplx else x
     yf = torch.view_as_real(y) if cplx else y
     tw = _twiddles(int(nwins), str(dev))
-    ngroups = _groups(navr, nsig, dev)
     out = torch.empty((nsig, navr, nwins), dtype=torch.complex64, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -137,7 +163,7 @@ def stft_cuda(x, y, win, norm, *, navr, nwins, hop, detrend_style=1):
             xf.data_ptr(), yf.data_ptr() if nsig > 1 else xf.data_ptr(),
             yf.stride(0) if nsig > 1 else 0, int(cplx), nsig,
             means.data_ptr(), w.data_ptr(), tw.data_ptr(), out.data_ptr(),
-            int(nwins), int(hop), int(navr), ngroups, float(norm), stream)
+            int(nwins), int(hop), int(navr), float(norm), stream)
         _build.check(rc, "stft kernel")
     LAUNCHES += 1
     return out

@@ -58,7 +58,13 @@ from . import segmentation as seg
 
 __all__ = ["fft_pwelch", "fftinfosc", "Cxy_Cxy2", "welch_cross_spectra",
            "welch_filtered_cross_spectra", "csd_oracle",
-           "resolve_fft_backend", "pallas_route"]
+           "backend_supports_complex", "resolve_fft_backend", "pallas_route"]
+
+
+def backend_supports_complex() -> bool:
+    """True: ``torch.fft`` and complex tensors work on every torch device
+    (the JAX package's TPU backend is the one without them)."""
+    return True
 
 
 def resolve_fft_backend(fft_backend=None) -> str:
@@ -452,14 +458,14 @@ def welch_filtered_cross_spectra(x, y, taps, win, plan: seg.SegmentPlan,
         freq = np.fft.fftfreq(plan.nfft, 1.0 / fs)
         out["freq"] = freq[:plan.nnyquist]
         return out
-    from .filters import fir_filter
+    from .filters import _fir_filter
     from .ops.fir import PALLAS_FIR_MAX_TAPS
     # on the card the filter-first route filters with kernel A, the role
     # the FIR kernel plays as the feeder of the JAX package's unfused path
     fir_backend = ("pallas" if dev.type == "cuda"
                    and taps_np.size <= PALLAS_FIR_MAX_TAPS else "os")
-    xf = fir_filter(x, taps_np, backend=fir_backend)
-    yf = fir_filter(y2, taps_np, backend=fir_backend)
+    xf = _fir_filter(x, taps_np, backend=fir_backend)
+    yf = _fir_filter(y2, taps_np, backend=fir_backend)
     return welch_cross_spectra(xf, yf, win_np, plan, fs, onesided=True,
                                detrend_style=detrend_style,
                                fft_backend=backend)

@@ -289,7 +289,7 @@ def test_tile_aliases_filter_like_fir_filter():
     assert xr.shape[-1] == 128 and nt == 1000
     y = pf.untile_rows(pf.fir_filter_tiled(xr, taps), nt)
     ref = pf.fir_filter(x, taps, backend="pallas")
-    np.testing.assert_allclose(y.numpy(), ref.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=1e-6)
     np.testing.assert_array_equal(pf.untile_rows(xr, nt).numpy(), x.numpy())
 
 

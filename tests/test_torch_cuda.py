@@ -90,6 +90,18 @@ def test_welch_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins, hop,
             assert err <= 2e-5
 
 
+def _stft_sizes():
+    """Every power of two 16..16384 with half-overlapping segments, real:
+    an odd navr (5) at even log2 N, an even one (6) at odd log2 N."""
+    out = []
+    for logn in range(4, 15):
+        n = 1 << logn
+        navr = 5 if logn % 2 == 0 else 6
+        out.append((2 if n < 4096 else 1, n + (n // 2) * (navr - 1) + 3, n,
+                    n // 2, False, 1))
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nsig,nt,nwins,hop,cplx,detrend", [
     (1, 1 << 15, 2048, 1024, False, 1),
@@ -99,11 +111,18 @@ def test_welch_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins, hop,
     (1, 1 << 17, 16384, 16384, False, 1),
     (9, 3001, 16, 16, True, 1),
     (1, 777, 16, 7, True, 0),
+    *_stft_sizes(),
+    (3, 4096 + 5, 4096, 4096, False, 1),          # navr = 1, alone
+    (1, 4096 + 5, 4096, 4096, True, 1),           # navr = 1, complex
+    (1, 1024 + 40, 1024, 1, False, 1),            # hop 1, navr 41
+    (2, 512 * 10 + 7, 512, 512, False, 0),        # hop = N, navr 10
+    (9, (1 << 15) + 500, 2048, 1024, False, 1),   # nsig 9 real, navr 31
 ])
 def test_stft_kernel_matches_plain_on_card(cuda_device, nsig, nt, nwins, hop,
                                            cplx, detrend):
     """Kernel C vs its plain version in float64 on the card: max |diff| /
-    max |ref| <= 2e-5 (float32 radix-2 FFT)."""
+    max |ref| <= 2e-5 (float32 Stockham FFT, two real segments per complex
+    transform)."""
     rng = np.random.default_rng(nt + nsig)
     dt = torch.complex64 if cplx else torch.float32
     x = rng.standard_normal(nt) + 0.3
@@ -127,6 +146,23 @@ def test_stft_kernel_matches_plain_on_card(cuda_device, nsig, nt, nwins, hop,
     err = ((got.to(torch.complex128) - ref).abs().max()
            / ref.abs().max()).item()
     assert err <= 2e-5
+
+
+@pytest.mark.cuda
+def test_stft_kernel_bursty_pairs_hold_per_segment_on_card(cuda_device):
+    """Odd segments with 1/10 of their neighbours' amplitude share a complex
+    FFT with them: each segment is held to 2e-5 of its own max |ref|."""
+    rng = np.random.default_rng(23)
+    nwins, navr = 1024, 63
+    x = rng.standard_normal(nwins * navr)
+    x[np.arange(x.size) // nwins % 2 == 1] /= 10
+    xt = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    win = np.hanning(nwins + 1)[:-1]
+    kw = dict(navr=navr, nwins=nwins, hop=nwins, detrend_style=1)
+    got = pst.stft_cuda(xt, None, win, 1.0, **kw).to(torch.complex128)
+    ref = pst.stft_plain(xt.double(), None, win, 1.0, **kw)
+    err = (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+    assert err.max().item() <= 2e-5
 
 
 @pytest.mark.cuda

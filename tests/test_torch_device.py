@@ -46,6 +46,10 @@ _ENTRIES = {
         x, **kw),
     "filtfilt": lambda t, x, y, **kw: pt.filters.filtfilt(
         *pt.filters.butter(2, 0.1), x, **kw),
+    "fir_filter": lambda t, x, y, **kw: pt.filters.fir_filter(
+        x, np.ones(3) / 3, **kw),
+    "oaconvolve": lambda t, x, y, **kw: pt.filters.oaconvolve(
+        x, np.ones(3) / 3, **kw),
     "stft_segments": lambda t, x, y, **kw: pt.stft_segments(
         x, t, np.hanning(512),
         pseg.plan_segments(x.size, nwins=512, windowoverlap=0.5), 1e3, **kw),
@@ -115,3 +119,13 @@ def test_cpu_tensors_run_without_a_device_argument(no_card):
     out = pt.fft_pwelch(torch.from_numpy(t), torch.from_numpy(x),
                         torch.from_numpy(y), Navr=4, plotit=False)
     assert np.all(np.isfinite(out[2]))
+
+
+def test_jax_top_level_names():
+    """``windows_mod`` is the alias of the ``windows`` module and
+    ``backend_supports_complex`` holds on every torch device, as the JAX
+    package exports them."""
+    assert pt.windows_mod is pt.windows
+    assert pt.backend_supports_complex() is True
+    assert pt.spectral.backend_supports_complex is pt.backend_supports_complex
+    assert {"windows_mod", "backend_supports_complex"} <= set(pt.__all__)

@@ -107,14 +107,15 @@ def test_fir_filter_matches_jax(backend):
     taps = _taps(129)
     ref = np.asarray(jfilters.fir_filter(x, taps, backend=backend))
     got = pfilters.fir_filter(torch.from_numpy(x), taps, backend=backend)
-    assert got.dtype == torch.float64 and got.shape == x.shape
+    assert isinstance(got, np.ndarray)
+    assert got.dtype == np.float64 and got.shape == x.shape
     tol = 2e-6 if backend == "pallas" else 1e-10
-    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+    np.testing.assert_allclose(got, ref, rtol=0,
                                atol=tol * np.abs(ref).max())
     # axis handling: time on axis 0
     got0 = pfilters.fir_filter(torch.from_numpy(x.T.copy()), taps, axis=0,
                                backend=backend)
-    np.testing.assert_allclose(got0.numpy().T, ref, rtol=0,
+    np.testing.assert_allclose(got0.T, ref, rtol=0,
                                atol=tol * np.abs(ref).max())
 
 
@@ -124,8 +125,24 @@ def test_oaconvolve_matches_jax(mode):
     x = rng.standard_normal((2, 3001))
     taps = _taps(200)
     ref = np.asarray(jfilters.oaconvolve(x, taps, mode=mode))
-    got = pfilters.oaconvolve(torch.from_numpy(x), taps, mode=mode).numpy()
-    assert got.shape == ref.shape
+    got = pfilters.oaconvolve(torch.from_numpy(x), taps, mode=mode)
+    assert isinstance(got, np.ndarray) and got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-10 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name", ["fir_filter", "oaconvolve"])
+def test_numpy_in_numpy_out_on_the_asked_device(name):
+    """NumPy input with ``device="cpu"``: NumPy out, as the JAX package
+    returns, equal to the JAX result (float64 on both sides, 1e-10 of the
+    scale)."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((2, 1500))
+    taps = _taps(65)
+    ref = np.asarray(getattr(jfilters, name)(x, taps))
+    got = getattr(pfilters, name)(x, taps, device="cpu")
+    assert isinstance(got, np.ndarray) and got.shape == ref.shape
+    assert got.dtype == np.float64
     np.testing.assert_allclose(got, ref, rtol=0,
                                atol=1e-10 * np.abs(ref).max())
 

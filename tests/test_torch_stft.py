@@ -14,6 +14,11 @@ pyfft_tpu_torch against the JAX package on the CPU.
   tests/test_fftanal.py puts on the JAX kernel path against its float64
   core (float32 spectra).
 - ``ops/transform`` against NumPy at rtol 1e-12.
+- Kernel C's arithmetic, which runs only on a card, as a float64
+  emulation of its plan (``csrc/fft_reg.cuh``'s passes, twiddle indices
+  and padded buffer; ``csrc/stft.cu``'s pairing of real segments and the
+  split per bin) against ``torch.fft.fft`` of each frame at 1e-12 of the
+  largest bin; its wrapper's means and cached window on CPU tensors.
 """
 import numpy as np
 import pytest
@@ -258,3 +263,178 @@ def test_transform_matches_numpy(fn):
     np.testing.assert_allclose(getattr(ptr, fn)(x, n=64, axis=-1),
                                np.asarray(jgot), rtol=1e-12,
                                atol=1e-12 * np.abs(jgot).max())
+
+
+# --------------------------------------------------------------------------- #
+# Kernel C's plan (csrc/stft.cu on csrc/fft_reg.cuh), emulated in float64
+# --------------------------------------------------------------------------- #
+
+_PT = 16        # complex points a thread holds
+
+
+def _radices(logn):
+    """``fftreg::radix``: 16 for every pass but the last, which takes the
+    remainder (2, 4, 8 or 16)."""
+    npass = (logn + 3) // 4
+    return [16 if p + 1 < npass else 1 << (logn - 4 * p)
+            for p in range(npass)]
+
+
+def _pad(i):
+    """``fftreg::pad``: one float2 of padding after every 16."""
+    return i + (i >> 4)
+
+
+def _fft_points(v, R):
+    """``fft_points<R>`` along the last axis: radix-2 decimation in
+    frequency with the 16th roots (``rot16``), then the bit reversal."""
+    v = v.clone()
+    half = R // 2
+    while half >= 1:
+        for i in range(R):
+            if not i & half:
+                a, b = v[..., i].clone(), v[..., i + half].clone()
+                q = (i & (half - 1)) * 8 // half
+                v[..., i] = a + b
+                v[..., i + half] = (a - b) * np.exp(-2j * np.pi * q / 16)
+        half //= 2
+    bits = R.bit_length() - 1
+    return v[..., [int(f"{k:0{bits}b}"[::-1], 2) for k in range(R)]]
+
+
+def _transform(v, logn):
+    """``fftreg::transform``: ``v (..., T, 16)`` holds thread t's pass-0
+    points (sample t + r*T); returns the padded shared-memory buffer that
+    the last pass leaves the spectrum in."""
+    N = 1 << logn
+    T = N // _PT
+    tw = torch.exp(-2j * np.pi * torch.arange(N // 2, dtype=torch.float64)
+                   / N)                              # the half table
+    t = torch.arange(T)[:, None]
+    buf = None
+    for p, R in enumerate(_radices(logn)):
+        Ns = 1 << (4 * p)
+        j = t + torch.arange(_PT // R) * T           # (T, 16/R) butterflies
+        r = torch.arange(R)
+        if p == 0:
+            v = v.reshape(*v.shape[:-1], 1, _PT)
+        else:                                        # load_pass, twiddles
+            v = buf[..., _pad(j[..., None] + r * (N // R))]
+            m = r * (j[..., None] % Ns) * (N // (Ns * R))
+            v = v * torch.where(m < N // 2, tw[m % (N // 2)],
+                                -tw[m % (N // 2)])
+        v = _fft_points(v, R)
+        buf = torch.zeros(*v.shape[:-3], _pad(N), dtype=torch.complex128)
+        d = (j // Ns) * Ns * R + j % Ns              # store_pass
+        buf[..., _pad(d[..., None] + r * Ns)] = v
+    return buf
+
+
+def _emulate_kernel_c(x, y, win, norm, *, navr, nwins, hop, detrend_style):
+    """Kernel C's arithmetic in float64: real signals two segments per
+    transform (2p and 2p + 1 of one signal, the last of an odd navr alone),
+    split per bin from Z_k and Z_{N-k}; complex signals one segment per
+    transform.  Returns ``(nsig, navr, nwins)`` complex128."""
+    sig = torch.cat([torch.as_tensor(x)[None],
+                     torch.as_tensor(y).reshape(-1, len(x))])
+    if detrend_style == 1:
+        sig = sig - sig.mean(-1, keepdim=True)
+    N = nwins
+    logn = N.bit_length() - 1
+    T = N // _PT
+    n = torch.arange(T)[:, None] + torch.arange(_PT) * T     # (T, 16)
+    w = torch.as_tensor(win, dtype=torch.float64)[n]
+    k = torch.arange(N)
+    out = torch.zeros(sig.shape[0], navr, N, dtype=torch.complex128)
+
+    def frames(s):                       # (nsig, len(s), T, 16)
+        return sig[:, (torch.as_tensor(s) * hop)[:, None, None] + n] * w
+
+    if sig.is_complex():
+        spec = _transform(frames(range(navr)), logn)
+        return norm * spec[..., _pad(k)]
+    s = torch.arange(0, navr - 1, 2)                         # pairs
+    spec = _transform(frames(s) + 1j * frames(s + 1), logn)
+    zk, zm = spec[..., _pad(k)], spec[..., _pad((N - k) & (N - 1))]
+    out[:, s] = 0.5 * norm * torch.complex(zk.real + zm.real,
+                                           zk.imag - zm.imag)
+    out[:, s + 1] = 0.5 * norm * torch.complex(zk.imag + zm.imag,
+                                               zm.real - zk.real)
+    if navr % 2:                                             # alone
+        lone = _transform(frames([navr - 1]) + 0j, logn)
+        out[:, navr - 1] = norm * lone[:, 0, _pad(k)]
+    return out
+
+
+@pytest.mark.parametrize("logn", range(4, 15))
+def test_kernel_c_fft_plan_matches_torch_fft(logn):
+    """The register-radix Stockham plan (pass radices, thread and butterfly
+    indexing, twiddle indices on the half table with its sign symmetry,
+    padded buffer) gives the DFT in natural order: float64, 1e-12 of the
+    largest bin; the padding slots stay unwritten."""
+    N = 1 << logn
+    rng = np.random.default_rng(logn)
+    z = torch.as_tensor(rng.standard_normal((3, N))
+                        + 1j * rng.standard_normal((3, N)))
+    T = N // _PT
+    v = z[:, torch.arange(T)[:, None] + torch.arange(_PT) * T]
+    buf = _transform(v, logn)
+    got = buf[:, _pad(torch.arange(N))]
+    ref = torch.fft.fft(z)
+    assert (got - ref).abs().max() <= 1e-12 * ref.abs().max()
+    pads = torch.ones(_pad(N), dtype=torch.bool)
+    pads[_pad(torch.arange(N))] = False
+    assert pads.sum() == _pad(N) - N and not buf[:, pads].abs().any()
+
+
+@pytest.mark.parametrize("nsig,nt,nwins,hop,cplx,detrend", [
+    (3, 16 * 9 + 5, 16, 16, False, 1),         # navr 9 (odd), three signals
+    (2, 1024 + 512 * 5, 1024, 512, False, 0),  # navr 6 (even)
+    (1, 2048 + 3, 2048, 2048, False, 1),       # navr 1: one segment alone
+    (2, 256 + 40, 256, 1, False, 1),           # hop 1, navr 41
+    (2, 512 * 4, 512, 256, True, 1),           # complex: one per transform
+    (1, 16384 * 2, 16384, 8192, False, 1),     # navr 3, radices 16.16.16.4
+    (1, 8192 + 4096, 8192, 4096, True, 0),     # radices 16.16.16.2
+])
+def test_kernel_c_pair_plan_matches_each_frame(nsig, nt, nwins, hop, cplx,
+                                               detrend):
+    """Two real segments per transform, split per bin into all nwins bins
+    of both (bins 0 and nwins/2 pair with themselves), the last segment of
+    an odd navr alone, pairs within a signal: float64 against
+    ``torch.fft.fft`` of each frame (the plain version), 1e-12 of max."""
+    x, y = _sigs(nt, nsig - 1, cplx, seed=nt + nwins)
+    win = np.hanning(nwins + 1)[:-1]
+    navr = (nt - nwins) // hop + 1
+    kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=detrend)
+    yt = None if y is None else torch.from_numpy(y)
+    ref = ps.stft_plain(torch.from_numpy(x), yt, win, 0.5, **kw)
+    got = _emulate_kernel_c(x, np.zeros((0, nt)) if y is None else y, win,
+                            0.5, **kw)
+    assert got.shape == ref.shape == (nsig, navr, nwins)
+    assert (got - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("ny", [0, 2])
+def test_kernel_c_means_and_window_operands(cplx, ny):
+    """The wrapper's operands, on CPU tensors: each signal's mean (re, im
+    pairs for complex signals, first signal first) from float32 block sums
+    added in float64, within 1e-6 of the largest sample; the window is the
+    same device tensor for the same content (one copy per content)."""
+    nt = 3 * 4096 + 77
+    x, y = _sigs(nt, ny, cplx, seed=ny + 7)
+    dt = torch.complex64 if cplx else torch.float32
+    xt = torch.as_tensor(x, dtype=dt)
+    yt = torch.as_tensor(np.zeros((0, nt)) if y is None else y, dtype=dt)
+    got = ps._means(xt, yt, 1, cplx).numpy()
+    sig = np.vstack([xt.numpy()[None], yt.numpy()]).astype(
+        np.complex128 if cplx else np.float64)
+    want = sig.mean(-1)
+    if cplx:
+        want = np.stack([want.real, want.imag], -1).reshape(-1)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(sig).max())
+    assert not ps._means(xt, yt, 0, cplx).any()
+    w = np.hanning(512).astype(np.float32).tobytes()
+    assert ps._window(w, "cpu") is ps._window(bytes(w), "cpu")
