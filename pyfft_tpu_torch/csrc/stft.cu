@@ -24,7 +24,11 @@
 //   2i (float32).  Each thread writes bin k of both segments, so both
 //   stores run in natural order.  With an odd navr the last segment goes
 //   alone (zero imaginary part); complex signals take one segment per FFT.
-//   Pairs never cross signals.
+//   Pairs never cross signals.  Before the transform each segment of a
+//   pair is scaled by a power of two to a sum of squares near 1 (one
+//   reduction over the transform's threads), and its bins are scaled back
+//   on the way out, so a quiet segment beside a loud one keeps the
+//   accuracy it would have alone.
 // - the FFT is fft_reg.cuh's register-radix Stockham transform: N/16
 //   threads with 16 points each, log16(N) passes (16.16.8 at N = 2048)
 //   through padded shared memory, twiddles from a float64 table read
@@ -66,6 +70,43 @@ __host__ __device__ constexpr int min_blocks(int logn) {
     return block_threads(logn) >= 768 ? 1 : 768 / block_threads(logn);
 }
 
+// Sums a and b over the T threads of each transform; every thread of a
+// transform gets the same sums, bit for bit (the butterfly adds each pair
+// in both orders, and above a warp all threads read the same partials in
+// the same order).  red: one double2 per warp of the block.
+template <int T>
+__device__ __forceinline__ void transform_sums(double& a, double& b,
+                                               double2* red) {
+    constexpr int W = T < 32 ? T : 32;
+#pragma unroll
+    for (int o = W / 2; o >= 1; o >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        b += __shfl_xor_sync(0xffffffffu, b, o);
+    }
+    if constexpr (T > 32) {
+        if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = make_double2(a, b);
+        __syncthreads();
+        const double2* r = red + (threadIdx.x / T) * (T / 32);
+        a = 0.0;
+        b = 0.0;
+#pragma unroll
+        for (int i = 0; i < T / 32; ++i) {
+            a += r[i].x;
+            b += r[i].y;
+        }
+    }
+}
+
+// The power of two 2^e that brings a segment whose sum of squares is ss
+// into [0.5, 2) (ss / 4^e there); 0 for a zero segment.  Kept to +-100 so
+// that 2^-e and norm * 2^e stay in float range.
+__device__ __forceinline__ int scale_exponent(double ss) {
+    int e2 = 0;
+    frexp(ss, &e2);
+    const int e = e2 >> 1;
+    return e < -100 ? -100 : e > 100 ? 100 : e;
+}
+
 template <int LOGN>
 __global__ void __launch_bounds__(block_threads(LOGN), min_blocks(LOGN))
 stft_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -78,6 +119,7 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ y,
     constexpr int T = N / P;
     constexpr int F = block_threads(LOGN) / T;
     extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ double2 red[block_threads(LOGN) / 32];
     const int slot = threadIdx.x / T;
     const int t = threadIdx.x % T;
     float2* spec = reinterpret_cast<float2*>(smem) + slot * fftreg::pad(N);
@@ -125,11 +167,38 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ y,
             }
         }
 
+        // Each real segment of a pair is scaled by its own power of two,
+        // 2^-ea and 2^-eb (exact), to a sum of squares in [0.5, 2), and its
+        // bins by 2^ea or 2^eb on the way out.  The transform's rounding
+        // error follows |Z|: unscaled, a quiet segment beside a loud one
+        // would carry the loud one's error; scaled, each segment's error
+        // follows its own size, as if it went alone.
+        int ea = 0, eb = 0;
+        if (!cplx) {
+            double sa = 0.0, sb = 0.0;
+#pragma unroll
+            for (int r = 0; r < P; ++r) {
+                sa += static_cast<double>(v[r].x) * v[r].x;
+                sb += static_cast<double>(v[r].y) * v[r].y;
+            }
+            transform_sums<T>(sa, sb, red);
+            ea = scale_exponent(sa);
+            eb = scale_exponent(sb);
+            const float ka = ldexpf(1.f, -ea), kb = ldexpf(1.f, -eb);
+#pragma unroll
+            for (int r = 0; r < P; ++r) {
+                v[r].x *= ka;
+                v[r].y *= kb;
+            }
+        }
+
         fftreg::transform<LOGN>(v, spec, tw, t);
 
         // bins k and k + 1 of both segments (of the one), 16-byte stores
         if (active) {
             float2* o = out + (static_cast<long long>(c) * navr + s) * N;
+            const float ga = ldexpf(pair ? half_norm : norm, ea);
+            const float gb = ldexpf(half_norm, eb);
 #pragma unroll
             for (int r = 0; r < P / 2; ++r) {
                 const int k = 2 * (t + r * T);
@@ -139,18 +208,18 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 if (pair) {
                     const float2 m0 = spec[fftreg::pad((N - k) & (N - 1))];
                     const float2 m1 = spec[fftreg::pad(N - k - 1)];
-                    __stcs(oa, make_float4((z0.x + m0.x) * half_norm,
-                                           (z0.y - m0.y) * half_norm,
-                                           (z1.x + m1.x) * half_norm,
-                                           (z1.y - m1.y) * half_norm));
+                    __stcs(oa, make_float4((z0.x + m0.x) * ga,
+                                           (z0.y - m0.y) * ga,
+                                           (z1.x + m1.x) * ga,
+                                           (z1.y - m1.y) * ga));
                     __stcs(reinterpret_cast<float4*>(o + N + k),
-                           make_float4((z0.y + m0.y) * half_norm,
-                                       (m0.x - z0.x) * half_norm,
-                                       (z1.y + m1.y) * half_norm,
-                                       (m1.x - z1.x) * half_norm));
+                           make_float4((z0.y + m0.y) * gb,
+                                       (m0.x - z0.x) * gb,
+                                       (z1.y + m1.y) * gb,
+                                       (m1.x - z1.x) * gb));
                 } else {
-                    __stcs(oa, make_float4(z0.x * norm, z0.y * norm,
-                                           z1.x * norm, z1.y * norm));
+                    __stcs(oa, make_float4(z0.x * ga, z0.y * ga,
+                                           z1.x * ga, z1.y * ga));
                 }
             }
         }

@@ -586,11 +586,12 @@ def downsample_efficient(u_t, Fs, Fs_new, plotit=False, halforder=2,
     return out[:, 0] if squeeze else out
 
 
-def smooth(x, window_len=11, window="hanning"):
+def smooth(x, window_len=11, window="hanning", device=None):
     """Windowed moving average with reflected ends (reference ``smooth``,
     :226-285, with integer slicing so that the output has the input's
-    length); host NumPy in and out, convolved on the CPU."""
-    x = np.asarray(x)
+    length), convolved by :func:`oaconvolve` on ``device``; NumPy out."""
+    dev = _device(device, x)
+    x = np.asarray(_np(x))
     if x.ndim != 1:
         raise ValueError("smooth only accepts 1 dimension arrays.")
     if x.size < window_len:
@@ -605,7 +606,7 @@ def smooth(x, window_len=11, window="hanning"):
         w = np.ones(window_len, "d")
     else:
         w = getattr(np, window)(window_len)
-    y = _np(_oaconvolve(torch.as_tensor(s), w / w.sum(), mode="valid"))
+    y = oaconvolve(s, w / w.sum(), mode="valid", device=dev)
     return y[(window_len // 2 - 1):-(window_len // 2)]
 
 

@@ -11,7 +11,10 @@ There is no filter on this path.
 
 - On CUDA tensors :func:`stft_cuda` launches kernel C (``csrc/stft.cu``:
   two real segments per complex FFT on the register-radix Stockham FFT of
-  ``csrc/fft_reg.cuh``).  Its means are ``welch._row_sums / nt``: float32
+  ``csrc/fft_reg.cuh``, each scaled by its own power of two, so that each
+  segment's error follows its own size, not its partner's: 2e-5 of its
+  own max however quiet it is beside the other).  Its means are
+  ``welch._row_sums / nt``: float32
   block sums added in float64, with no float64 copy of the signal; the
   window goes to the card once per (content, device).  After the first
   call with a window, a call copies nothing from the host.

@@ -149,16 +149,21 @@ def test_stft_kernel_matches_plain_on_card(cuda_device, nsig, nt, nwins, hop,
 
 
 @pytest.mark.cuda
-def test_stft_kernel_bursty_pairs_hold_per_segment_on_card(cuda_device):
-    """Odd segments with 1/10 of their neighbours' amplitude share a complex
-    FFT with them: each segment is held to 2e-5 of its own max |ref|."""
+@pytest.mark.parametrize("ratio,detrend", [(10, 1), (1000, 1), (1e6, 0)])
+def test_stft_kernel_bursty_pairs_hold_per_segment_on_card(cuda_device,
+                                                           ratio, detrend):
+    """Odd segments with 1/ratio of their neighbours' amplitude share a
+    complex FFT with them: each segment is held to 2e-5 of its own max
+    |ref|, whatever the ratio (each is scaled by its own power of two).
+    At 1:10^6 the global mean would swamp the quiet segments, so that case
+    runs without detrend."""
     rng = np.random.default_rng(23)
     nwins, navr = 1024, 63
     x = rng.standard_normal(nwins * navr)
-    x[np.arange(x.size) // nwins % 2 == 1] /= 10
+    x[np.arange(x.size) // nwins % 2 == 1] /= ratio
     xt = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
     win = np.hanning(nwins + 1)[:-1]
-    kw = dict(navr=navr, nwins=nwins, hop=nwins, detrend_style=1)
+    kw = dict(navr=navr, nwins=nwins, hop=nwins, detrend_style=detrend)
     got = pst.stft_cuda(xt, None, win, 1.0, **kw).to(torch.complex128)
     ref = pst.stft_plain(xt.double(), None, win, 1.0, **kw)
     err = (got - ref).abs().amax(-1) / ref.abs().amax(-1)

@@ -50,6 +50,7 @@ _ENTRIES = {
         x, np.ones(3) / 3, **kw),
     "oaconvolve": lambda t, x, y, **kw: pt.filters.oaconvolve(
         x, np.ones(3) / 3, **kw),
+    "smooth": lambda t, x, y, **kw: pt.filters.smooth(x, 11, **kw),
     "stft_segments": lambda t, x, y, **kw: pt.stft_segments(
         x, t, np.hanning(512),
         pseg.plan_segments(x.size, nwins=512, windowoverlap=0.5), 1e3, **kw),

@@ -18,7 +18,9 @@ pyfft_tpu_torch against the JAX package on the CPU.
   emulation of its plan (``csrc/fft_reg.cuh``'s passes, twiddle indices
   and padded buffer; ``csrc/stft.cu``'s pairing of real segments and the
   split per bin) against ``torch.fft.fft`` of each frame at 1e-12 of the
-  largest bin; its wrapper's means and cached window on CPU tensors.
+  largest bin; the pair's per-segment power-of-two scaling in float32,
+  which keeps a quiet segment beside a loud one at 2e-5 of its own max;
+  its wrapper's means and cached window on CPU tensors.
 """
 import numpy as np
 import pytest
@@ -354,16 +356,33 @@ def _emulate_kernel_c(x, y, win, norm, *, navr, nwins, hop, detrend_style):
         spec = _transform(frames(range(navr)), logn)
         return norm * spec[..., _pad(k)]
     s = torch.arange(0, navr - 1, 2)                         # pairs
-    spec = _transform(frames(s) + 1j * frames(s + 1), logn)
+    a, b = frames(s), frames(s + 1)
+    ka, kb = _pow2(_scale_exponent(a)), _pow2(_scale_exponent(b))
+    spec = _transform(a / ka + 1j * (b / kb), logn)
     zk, zm = spec[..., _pad(k)], spec[..., _pad((N - k) & (N - 1))]
-    out[:, s] = 0.5 * norm * torch.complex(zk.real + zm.real,
-                                           zk.imag - zm.imag)
-    out[:, s + 1] = 0.5 * norm * torch.complex(zk.imag + zm.imag,
-                                               zm.real - zk.real)
+    out[:, s] = 0.5 * norm * ka[..., 0] * torch.complex(zk.real + zm.real,
+                                                        zk.imag - zm.imag)
+    out[:, s + 1] = 0.5 * norm * kb[..., 0] * torch.complex(
+        zk.imag + zm.imag, zm.real - zk.real)
     if navr % 2:                                             # alone
-        lone = _transform(frames([navr - 1]) + 0j, logn)
-        out[:, navr - 1] = norm * lone[:, 0, _pad(k)]
+        a = frames([navr - 1])
+        ka = _pow2(_scale_exponent(a))
+        lone = _transform(a / ka + 0j, logn)
+        out[:, navr - 1] = norm * ka[:, 0, 0] * lone[:, 0, _pad(k)]
     return out
+
+
+def _scale_exponent(v):
+    """``scale_exponent`` of ``csrc/stft.cu`` for each segment of ``v (...,
+    T, 16)``: the integer e with sum(v^2) / 4^e in [0.5, 2) (0 for a zero
+    segment), kept to +-100; shape ``(..., 1, 1)``."""
+    _, e2 = torch.frexp(v.double().square().sum((-2, -1), keepdim=True))
+    return torch.div(e2, 2, rounding_mode="floor").clamp(-100, 100)
+
+
+def _pow2(e):
+    """2^e in float64, exact."""
+    return 2.0 ** e.to(torch.float64)
 
 
 @pytest.mark.parametrize("logn", range(4, 15))
@@ -412,6 +431,40 @@ def test_kernel_c_pair_plan_matches_each_frame(nsig, nt, nwins, hop, cplx,
                             0.5, **kw)
     assert got.shape == ref.shape == (nsig, navr, nwins)
     assert (got - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+@pytest.mark.parametrize("ratio", [1e4, 1e30])
+def test_kernel_c_pair_scaling_keeps_a_quiet_segment_accurate(ratio):
+    """The pair's per-segment power-of-two scaling, in float32 with a
+    complex64 ``torch.fft.fft`` for the transform: a segment with 1/ratio
+    of its partner's amplitude keeps 2e-5 of its own max |ref| (the card's
+    tolerance), as a segment alone does.  The control, the same pair
+    unscaled, carries the loud segment's error and misses it."""
+    N = 1024
+    rng = np.random.default_rng(int(ratio))
+    win = np.hanning(N)
+    a = torch.as_tensor(rng.standard_normal((8, N)) * win,
+                        dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal((8, N)) * win / ratio,
+                        dtype=torch.float32)
+    refs = [torch.fft.fft(v.double()) for v in (a, b)]
+    k = torch.arange(N)
+
+    def pair(scaled):
+        ka, kb = ((_pow2(_scale_exponent(v.reshape(8, -1, _PT)))[..., 0]
+                   if scaled else torch.ones(8, 1)).float() for v in (a, b))
+        z = torch.fft.fft(torch.complex(a / ka, b / kb))
+        zk, zm = z, z[..., (N - k) % N]
+        return (0.5 * ka * torch.complex(zk.real + zm.real, zk.imag - zm.imag),
+                0.5 * kb * torch.complex(zk.imag + zm.imag, zm.real - zk.real))
+
+    def worst(got):
+        return max(((g.to(torch.complex128) - r).abs().amax(-1)
+                    / r.abs().amax(-1)).max().item()
+                   for g, r in zip(got, refs))
+
+    assert worst(pair(True)) <= 2e-5
+    assert worst(pair(False)) > 2e-5
 
 
 @pytest.mark.parametrize("cplx", [False, True])
