@@ -9,7 +9,11 @@ paths, then drives the main paths:
 - the fused FIR -> Welch cross-spectral chain at the size of bench
   configurations 0 and 5: 8 channels of 2**25 float32 samples at fs = 1 MHz
   with a 129-tap band-pass and nwins = 2048, and 8 channels of 2**24
-  samples with nwins = 4096 through ``fft_pwelch`` (phases 4-5);
+  samples with nwins = 4096 through ``fft_pwelch`` (phases 4-5), after
+  kernel B (``csrc/welch_pair.cu`` for real signals) against its plain
+  version at both sizes, each channel also held to its own max with the
+  channels 10 and 1000 times quieter than the reference, and one config-0
+  call traced under ``torch.profiler`` (phase 3);
 - the STFT path through the ``fftanal`` class at the size of bench
   configuration 2, a 2**24-sample chirp with nwins = 2048 and 50% overlap,
   and a two-signal ``fftanal`` with nwins = 4096 (phases 7-8), after
@@ -34,7 +38,8 @@ paths, then drives the main paths:
   (phase 13);
 - bench configuration 1, the single-signal PSD of a 2**24-sample signal
   with nwins = 4096 and 50% overlap, through ``ops.welch_auto_packed``
-  (kernel H, kernel B's packed mode: two segments per complex FFT), timed
+  (kernel H, kernel B's real kernel for one signal: two segments per
+  complex FFT), timed
   against kernel B at nch = 0 and the plain version over 25 runs each and
   traced once under ``torch.profiler`` (phase 14); then the ``PYFFT_PACKED=1``
   route of ``welch_cross_spectra`` on one real pair (kernel H in its pair
@@ -191,6 +196,22 @@ def trace_call(fn, kernel):
                 kernel_ms=sum(v for k, v in dev_ms.items() if kernel in k),
                 h2d_pageable=pageable, host_ms=sum(host_ms.values()),
                 top_device_ms=top(dev_ms), top_host_ms=top(host_ms))
+
+
+def channel_errs(got, ref):
+    """Per channel of Welch outputs ``(Pxx, Pyy, Pxy_re, Pxy_im)``: max
+    |got - ref| / max |ref| of ``Pyy`` and of ``Pxy`` (complex) over each
+    channel's bins, and of ``Pxx``."""
+    import torch
+    gxy = torch.complex(got[2], got[3]).to(torch.complex128)
+    rxy = torch.complex(ref[2], ref[3]).to(torch.complex128).to(gxy.device)
+
+    def per(g, r):
+        r = r.to(g.device)
+        return ((g - r).abs().amax(-1) / r.abs().amax(-1)).tolist()
+    return {"Pxx": [per(got[0].double(), ref[0].double())],
+            "Pyy": per(got[1].double(), ref[1].double()),
+            "Pxy": per(gxy, rxy)}
 
 
 def seg_rel_err(got, ref):
@@ -432,24 +453,51 @@ def main():
                 "Pyy": rel_err(got[1], ref[1]),
                 "Pxy": rel_err(torch.complex(got[2], got[3]),
                                torch.complex(ref[2], ref[3]))}
+        chan = {"1_to_1": channel_errs(got, ref)}
         del got, ref
-        ms = time_ms(lambda: welch.welch_cuda(x, y, win, plan.nnyquist, norm,
-                                              **kw))
-        plain_ms = time_ms(lambda: welch.welch_plain(
-            x, y, win, plan.nnyquist, norm, **kw))
+        if cfg == 0:
+            # every channel 10 and 1000 times quieter than the reference:
+            # each channel's Pyy and Pxy held to its own max
+            for g in (10, 1000):
+                yq = y / g
+                chan[f"1_to_{g}"] = channel_errs(
+                    welch.welch_cuda(x, yq, win, plan.nnyquist, norm, **kw),
+                    welch.welch_plain(x, yq, win, plan.nnyquist, norm, **kw))
+                del yq
+        runs = {"ms": time_runs(lambda: welch.welch_cuda(
+                    x, y, win, plan.nnyquist, norm, **kw), 10),
+                "plain_ms": time_runs(lambda: welch.welch_plain(
+                    x, y, win, plan.nnyquist, norm, **kw), 5)}
+        ms, plain_ms = (statistics.median(runs[k]) for k in ("ms", "plain_ms"))
         max_abs = max(e * s for e, s in errs.values())
+        prof = (trace_call(lambda: welch.welch_cuda(x, y, win, plan.nnyquist,
+                                                    norm, **kw),
+                           "welch_pair_kernel") if cfg == 0 else None)
         emit("welch_vs_plain", config=cfg, nch=NCH, nt=nt, nwins=nwins,
              navr=plan.navr, ntaps=0 if taps is None else len(taps),
              rel_err={k: e for k, (e, _) in errs.items()},
-             max_abs_err=max_abs, tol=WELCH_TOL, ms=ms, plain_ms=plain_ms)
+             channel_rel_err=chan, max_abs_err=max_abs, tol=WELCH_TOL,
+             ms=ms, plain_ms=plain_ms,
+             quartiles_ms={k: statistics.quantiles(v, n=4)
+                           for k, v in runs.items()})
         for name, (e, _) in errs.items():
             check(e <= WELCH_TOL,
                   f"kernel B config {cfg} {name}: rel err {e} > {WELCH_TOL}")
+        for ratio, per in chan.items():
+            for name, e in per.items():
+                check(max(e) <= WELCH_TOL, f"kernel B config {cfg} {ratio} "
+                      f"{name} per channel: {e} > {WELCH_TOL}")
         if cfg == 0:
+            emit("welch_profile", config=0, **prof)
+            check(prof["kernel_ms"] > 0, "the profiler saw no "
+                  "welch_pair_kernel")
+            check(prof["h2d_pageable"] == 0,
+                  f"kernel B config 0: {prof['h2d_pageable']} pageable host "
+                  f"-> device copies in a call after the first")
             nsig = 1 + y.shape[0]
             kernels["welch"] = dict(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=None,
+                library_ms=None, kernel_device_ms=prof["kernel_ms"],
                 **bound(fir_ops(nt, len(taps), nsig)
                         + profiling.welch_flops(plan.navr, nwins, NCH),
                         4.0 * nsig * (nt + 3 * plan.nnyquist)))
@@ -1147,12 +1195,16 @@ def main():
         prof14 = {}
         for what, fn in (("kernel_h", packed), ("kernel_b_nch0", kernel_b),
                          ("plain", plain)):
-            prof14[what] = trace_call(fn, "welch_kernel")
-            prof14[what]["welch_kernel_ms"] = prof14[what].pop("kernel_ms")
+            prof14[what] = trace_call(fn, "welch_pair_kernel")
+            prof14[what]["welch_pair_kernel_ms"] = prof14[what].pop(
+                "kernel_ms")
         emit("welch_packed_profile", config=1, ntaps=ntaps, **prof14)
-        check(prof14["kernel_h"]["welch_kernel_ms"] > 0
-              and prof14["kernel_b_nch0"]["welch_kernel_ms"] > 0,
-              "the profiler saw no welch_kernel")
+        check(prof14["kernel_h"]["welch_pair_kernel_ms"] > 0
+              and prof14["kernel_b_nch0"]["welch_pair_kernel_ms"] > 0,
+              "the profiler saw no welch_pair_kernel")
+        check(prof14["kernel_h"]["h2d_pageable"] == 0,
+              f"kernel H config 1: {prof14['kernel_h']['h2d_pageable']} "
+              f"pageable host -> device copies in a call after the first")
 
     # ---- sixth main path: config 1 through welch_auto_packed ------------ #
     reset_counts()
@@ -1399,11 +1451,11 @@ def main():
         check(n > 0, f"kernel {name} was not launched by the main path")
     source = {"fir": ("pyfft_tpu_torch/csrc/fir.cu",
                       "pyfft_tpu/ops/pallas_fir.py:150"),
-              "welch": ("pyfft_tpu_torch/csrc/welch.cu",
+              "welch": ("pyfft_tpu_torch/csrc/welch_pair.cu",
                         "pyfft_tpu/ops/pallas_welch3.py:455"),
-              "welch_v2": ("pyfft_tpu_torch/csrc/welch.cu",
+              "welch_v2": ("pyfft_tpu_torch/csrc/welch_pair.cu",
                            "pyfft_tpu/ops/pallas_welch.py:447"),
-              "welch_packed": ("pyfft_tpu_torch/csrc/welch.cu",
+              "welch_packed": ("pyfft_tpu_torch/csrc/welch_pair.cu",
                                "pyfft_tpu/ops/pallas_welch3.py:455"),
               "fir_t": ("pyfft_tpu_torch/csrc/fir.cu",
                         "pyfft_tpu/ops/pallas_fir.py:451"),

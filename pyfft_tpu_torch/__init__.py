@@ -30,12 +30,11 @@ Map from the JAX package:
 ``plotting.py``                    ``plotting.py`` (copy)
 ``segmentation.py``                ``segmentation.py`` (framing in torch)
 ``ops/pallas_fir.py``              ``ops/fir.py`` + ``csrc/fir.cu``
-``ops/pallas_welch3.py`` and the   ``ops/welch.py`` + ``csrc/welch.cu``
-v2 kernel and entries of           (kernel B)
-``ops/pallas_welch.py``
+``ops/pallas_welch3.py`` and the   ``ops/welch.py`` +
+v2 kernel and entries of           ``csrc/welch_pair.cu`` (kernel B, real
+``ops/pallas_welch.py``            signals) + ``csrc/welch.cu`` (complex)
 ``ops/pallas_welch3.py`` (packed   ``ops/welch_packed.py`` +
-entries)                           ``csrc/welch.cu`` (kernel H: B's
-                                   packed modes)
+entries)                           ``csrc/welch_pair.cu`` (kernel H)
 ``ops/pallas_fir.py`` (FIR-        ``ops/fir.py`` + ``csrc/fir.cu``
 transpose feeder)
 ``ops/pallas_welch3.py`` (STFT     ``ops/stft.py`` + ``csrc/stft.cu``
@@ -45,7 +44,8 @@ entries)
 ``welch_pallas_fused``,            ``csrc/welch_dft.cu``
 ``welch_power_pallas``)
 ``utils/profiling.py`` (probes)    ``ops/probe.py`` + ``csrc/probe.cu``
-(the FFT of kernels B to E, H)     ``csrc/fft.cuh``
+(the FFT of B complex, D, E)       ``csrc/fft.cuh``
+(the FFT of B real, C, H)          ``csrc/fft_reg.cuh``
 (the partial sums of B, E-H)       ``csrc/reduce.cuh``
 ``ops/transform.py``               ``ops/transform.py`` (``torch.fft``)
 (kernel build and load)            ``ops/_build.py``

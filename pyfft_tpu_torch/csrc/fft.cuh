@@ -1,6 +1,8 @@
 // Segment staging and the in-place radix-2 FFT in shared memory, shared by
-// kernels B and H (welch.cu) and C (stft.cu), so that they
-// run one FFT and each one's tests also cover the others' transform.
+// the complex path of kernel B (welch.cu), kernel D (hilbert.cu) and kernel
+// E (welch_dft.cu), so that they run one FFT and each one's tests also
+// cover the others' transform.  Kernels C and B's real path (stft.cu,
+// welch_pair.cu) run fft_reg.cuh's register-radix FFT instead.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,5 +1,5 @@
 // A register-radix Stockham FFT for one block's group of threads: kernel C
-// (stft.cu) alone uses it.
+// (stft.cu) and kernel B's real path with kernel H (welch_pair.cu) use it.
 //
 // An N-point transform (N = 2^LOGN, 16 <= N <= 16384) is run by T = N/16
 // threads, each holding 16 complex points in registers.  The passes are

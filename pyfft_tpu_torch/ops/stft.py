@@ -31,13 +31,11 @@ in {0, 1}.  Its shared memory is at most 136 KB a block (``nwins`` 16384).
 """
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
 from . import _build
-from .welch import _row_sums, _twiddles
+from .welch import _row_sums, _twiddles, _window
 from .. import segmentation as seg
 from ..spectral import _device, _tensor
 
@@ -95,13 +93,6 @@ def stft_plain(x, y, win, norm, *, navr, nwins, hop, detrend_style=1):
 # --------------------------------------------------------------------------- #
 # Kernel C
 # --------------------------------------------------------------------------- #
-
-@lru_cache(maxsize=16)
-def _window(data: bytes, device: str) -> torch.Tensor:
-    """The float32 window whose bytes are ``data``, on ``device`` (one host
-    -> device copy per content and device)."""
-    return torch.frombuffer(bytearray(data), dtype=torch.float32).to(device)
-
 
 def _means(x, y, detrend_style, cplx):
     """Kernel C's ``means`` operand, float32: each signal's mean (a re, im

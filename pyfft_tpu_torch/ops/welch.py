@@ -11,19 +11,22 @@ global mean of each *filtered* signal removed (``detrend_style`` 1) or not
 scaled by ``norm``, with ``Pxy = Y conj(X)``.  The caller applies the
 one-sided bin doubling.
 
-- On CUDA tensors :func:`welch_cuda` launches kernel B (``csrc/welch.cu``):
-  the filtered signal never reaches device memory.  The per-signal means
-  of the filtered signals come from the unfiltered sums by the moment
+- On CUDA tensors :func:`welch_cuda` launches kernel B: real signals
+  ``csrc/welch_pair.cu`` (x paired with each channel in one complex FFT on
+  ``csrc/fft_reg.cuh``, each sequence scaled by its own power of two, each
+  span filtered once per block), complex ones ``csrc/welch.cu``.  The
+  filtered signal never reaches device memory.  The per-signal means of
+  the filtered signals come from the unfiltered sums by the moment
   identity ``sum(conv(x, t)[:nt]) = sum_k t_k (S - T_k)`` (``T_k`` the sum
   of the last ``k`` samples), an O(C*K) float64 prologue in plain torch, as
-  the JAX package computes it in XLA outside its kernel.
+  the JAX package computes it in XLA outside its kernel.  The window and
+  the taps go to the card once per (content, device): after the first
+  call with them, a call copies nothing from the host.
 - On CPU tensors :func:`welch_plain` runs: ``fir_plain`` -> mean ->
   frames -> window -> ``torch.fft.fft`` -> sums, in the input's dtype.
-- ``welch_cuda(..., packed=True)`` runs the kernel's packed modes, kernel
-  H (the packed entries of :mod:`pyfft_tpu_torch.ops.welch_packed`): for
-  one real signal or one real pair, two real sequences share one complex
-  FFT and are split again by the symmetry ``Z_{N-k}``; half the FFTs of
-  kernel B on the same signals.
+- ``welch_cuda(..., packed=True)`` is kernel H (the packed entries of
+  :mod:`pyfft_tpu_torch.ops.welch_packed`): the same real kernel for one
+  real signal (two of its segments per complex FFT) or one real pair.
 
 ``LAUNCHES`` counts the launches of kernel B, ``PACKED_LAUNCHES`` those of
 kernel H.  The entries compute on the port's device
@@ -34,8 +37,8 @@ Domain of the kernel (re-derived for the card; the TPU's lane and VMEM
 limits do not apply): ``nwins`` a power of two in 16..16384, any hop in
 1..nwins, any ``nt >= (navr-1)*hop + nwins``, any ``nch >= 0`` (up to
 65534), up to 1024 taps, ``detrend_style`` in {0, 1}, real float32 or
-complex64 (two-sided) signals.  Its shared memory,
-``8*nwins + 4*(nwins+K-1) + 4*K`` bytes, is at most 205 KB there.
+complex64 (two-sided) signals.  Its shared memory is at most 140 KB a
+block (real, ``nwins`` 16384) and 205 KB (complex).
 
 Kernel B also stands for TPU kernel #8, the v2 factored kernel
 (``pallas_welch.py::_factored_kernel``), which the JAX package's
@@ -166,15 +169,30 @@ def _row_sums(rows: torch.Tensor) -> torch.Tensor:
             + rows[:, m:].to(torch.float64).sum(-1))
 
 
+@lru_cache(maxsize=32)
+def _device_copy(data: bytes, dtype: str, device: str) -> torch.Tensor:
+    """The array whose bytes are ``data``, as ``torch.<dtype>`` on
+    ``device`` (one host -> device copy per content, type and device)."""
+    return torch.frombuffer(bytearray(data),
+                            dtype=getattr(torch, dtype)).to(device)
+
+
+def _window(data: bytes, device: str) -> torch.Tensor:
+    """The float32 window whose bytes are ``data``, on ``device``."""
+    return _device_copy(data, "float32", device)
+
+
 def _moment_means(rows: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     """float64 means of ``conv(row, taps, 'full')[:nt]`` for each row of
-    ``rows (R, nt)`` (any strides), from the unfiltered sums."""
+    ``rows (R, nt)`` (any strides), from the unfiltered sums.  A single tap
+    is a scalar factor; longer taps are cached on the rows' device."""
     nt = rows.shape[-1]
     K = taps.size
     S = _row_sums(rows)
-    t = torch.as_tensor(taps, dtype=torch.float64, device=rows.device)
     if K == 1:
-        return S * t[0] / nt
+        return S * float(taps.flat[0]) / nt
+    t = _device_copy(np.ascontiguousarray(taps, np.float64).tobytes(),
+                     "float64", str(rows.device))
     tail = rows[:, max(0, nt - (K - 1)):].flip(-1).to(torch.float64)
     tail = torch.nn.functional.pad(tail, (0, K - 1 - tail.shape[-1]))
     T = torch.cat([torch.zeros_like(S)[:, None], torch.cumsum(tail, -1)], -1)
@@ -204,18 +222,14 @@ def _groups(navr: int, ncols: int, device) -> int:
     return max(1, min(navr, -(-4 * sms // ncols)))
 
 
-_MIRROR_SIGN = (1.0, 1.0, -1.0)
-
-
 def _mirror(out: torch.Tensor, nwins: int, nfreq: int) -> torch.Tensor:
     """Bins ``nwins/2+1 .. nfreq-1`` of real signals' powers ``out (C, 3,
     nwins/2+1)`` from their mirror images: ``P[N-k] = P[k]`` and ``Im
     Pxy[N-k] = -Im Pxy[k]`` (row 2)."""
     if nfreq <= out.shape[-1]:
         return out
-    sign = torch.tensor(_MIRROR_SIGN, dtype=out.dtype,
-                        device=out.device)[:, None]
-    tail = out[..., nwins - nfreq + 1:nwins // 2].flip(-1) * sign
+    tail = out[..., nwins - nfreq + 1:nwins // 2].flip(-1)
+    tail = torch.cat([tail[..., :2, :], -tail[..., 2:, :]], dim=-2)
     return torch.cat([out, tail], dim=-1)
 
 
@@ -253,40 +267,58 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
     if (navr - 1) * hop + nwins > nt:
         raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
                          f"fit {nt} samples")
+    win32 = np.ascontiguousarray(np.asarray(win), dtype=np.float32)
+    if win32.shape != (nwins,):
+        raise ValueError(f"window of shape {win32.shape}, need ({nwins},)")
     taps64 = (np.ones(1) if taps is None
               else np.asarray(taps, dtype=np.float64).ravel())
     dev = x.device
     means = _means(x, y, taps64, detrend_style, cplx)
-    xf = torch.view_as_real(x) if cplx else x
-    yf = torch.view_as_real(y) if cplx else y
-    w = torch.as_tensor(np.asarray(win), dtype=torch.float32,
-                        device=dev).contiguous()
-    if w.shape != (nwins,):
-        raise ValueError(f"window of shape {tuple(w.shape)}, need ({nwins},)")
-    t = torch.as_tensor(taps64, dtype=torch.float32, device=dev)
+    w = _window(win32.tobytes(), str(dev))
+    t = _device_copy(taps64.astype(np.float32).tobytes(), "float32",
+                     str(dev))
+    K = int(taps64.size)
     tw = _twiddles(int(nwins), str(dev))
-    # the packed modes keep bins 0..nwins/2 and transform two sequences at
-    # once: ceil(navr/2) transforms of x alone, navr of (x, y)
-    nbins = min(nfreq, nwins // 2 + 1) if packed else nfreq
-    nffts = (navr if nch else -(-navr // 2)) if packed else navr
-    ngroups = _groups(nffts, 1 if packed else nch + 1, dev)
-    part = torch.empty((ngroups, nch + 1, 3, nbins), dtype=torch.float64,
-                       device=dev)
-    out = torch.empty((nch + 1, 3, nbins), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pyfft_welch(
-            xf.data_ptr(), yf.data_ptr() if nch else xf.data_ptr(),
-            yf.stride(0) if nch else 0, 2 if cplx else 1, int(cplx),
-            t.data_ptr(), int(t.numel()), means.data_ptr(), w.data_ptr(),
-            tw.data_ptr(), part.data_ptr(), out.data_ptr(), nch, int(nwins),
-            int(hop), int(navr), ngroups, int(nbins), int(bool(packed)),
-            float(norm), stream)
-        _build.check(rc, "welch kernel")
+        if cplx:
+            ngroups = _groups(navr, nch + 1, dev)
+            part = torch.empty((ngroups, nch + 1, 3, nfreq),
+                               dtype=torch.float64, device=dev)
+            out = torch.empty((nch + 1, 3, nfreq), dtype=torch.float32,
+                              device=dev)
+            xf, yf = torch.view_as_real(x), torch.view_as_real(y)
+            rc = lib.pyfft_welch(
+                xf.data_ptr(), yf.data_ptr() if nch else xf.data_ptr(),
+                yf.stride(0) if nch else 0, 2, 1, t.data_ptr(), K,
+                means.data_ptr(), w.data_ptr(), tw.data_ptr(),
+                part.data_ptr(), out.data_ptr(), nch, int(nwins), int(hop),
+                int(navr), ngroups, int(nfreq), float(norm), stream)
+            _build.check(rc, "welch kernel")
+        else:
+            # bins 0..nwins/2, the rest mirrored; about one item (segment
+            # group x channel) per block the card holds at once
+            nbins = min(nfreq, nwins // 2 + 1)
+            resident = lib.pyfft_welch_pair_resident(int(nwins), K)
+            if resident < 0:
+                _build.check(-resident, "welch_pair kernel")
+            nunits = navr if nch else -(-navr // 2)
+            ngroups = max(1, min(nunits, resident // max(nch, 1)))
+            part = torch.empty((ngroups, nch + 1, 3, nbins),
+                               dtype=torch.float64, device=dev)
+            out = torch.empty((nch + 1, 3, nbins), dtype=torch.float32,
+                              device=dev)
+            rc = lib.pyfft_welch_pair(
+                x.data_ptr(), y.data_ptr() if nch else x.data_ptr(),
+                y.stride(0) if nch else 0, t.data_ptr(), K, means.data_ptr(),
+                w.data_ptr(), tw.data_ptr(), part.data_ptr(), out.data_ptr(),
+                nch, int(nwins), int(hop), int(navr), ngroups, nbins,
+                float(norm), stream)
+            _build.check(rc, "welch_pair kernel")
+            out = _mirror(out, int(nwins), int(nfreq))
     if packed:
         PACKED_LAUNCHES += 1
-        out = _mirror(out, int(nwins), int(nfreq))
     else:
         LAUNCHES += 1
     return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]

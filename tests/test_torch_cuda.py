@@ -59,11 +59,16 @@ def test_fir_kernel_matches_plain_on_card(cuda_device, nch, nt, K):
     (1, 1 << 14, 16, 7, 5, 1, False),
     (2, 1 << 16, 16384, 8192, 1024, 1, False),
     (2, 1 << 14, 512, 256, 97, 1, True),
+    (2, 5000, 16, 1, 1024, 1, False),            # N 16, hop 1, K 1024
+    (1, 1 << 14, 2048, 1, 33, 1, False),         # hop 1 at N 2048
+    (3, 1 << 16, 16384, 4096, 1024, 0, False),   # no ring, K 1024
+    (0, 5 << 14, 16384, 16384, 129, 1, False),   # no ring, nch 0, lone
 ])
 def test_welch_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins, hop,
                                             ntaps, detrend, cplx):
     """Kernel B vs its plain version in float64 on the card: max |diff| /
-    max |ref| <= 2e-5 per output (float32 FFT, float64 sums)."""
+    max |ref| <= 2e-5 per output (float32 FFT, float64 sums).  Real signals
+    take csrc/welch_pair.cu, complex ones csrc/welch.cu."""
     rng = np.random.default_rng(nt + nch)
     dt = torch.complex64 if cplx else torch.float32
     x = rng.standard_normal(nt) + 0.3
@@ -88,6 +93,43 @@ def test_welch_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins, hop,
         if r.numel():
             err = ((g.double() - r).abs().max() / r.abs().max()).item()
             assert err <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntaps", [0, 129])
+@pytest.mark.parametrize("x_scale", [1.0, 1e-3, 1e-6])
+def test_welch_kernel_holds_each_channel_to_its_own_max_on_card(
+        cuda_device, x_scale, ntaps):
+    """Channels at 1, 1/10, 1/1000 and 1/10^6 of their coherent part's
+    amplitude beside a reference at ``x_scale`` (1: the reference loud;
+    1e-6: the reverse, the first channel 10^6 times louder than x): each
+    output of each channel (Pyy, and Pxy as a complex row) and Pxx within
+    2e-5 of its own max |ref| (each sequence of a transform is scaled by its
+    own power of two)."""
+    rng = np.random.default_rng(31 + ntaps)
+    nt, nwins, hop = 1 << 16, 2048, 1024
+    x = rng.standard_normal(nt) + 0.2
+    y = 0.5 * x + rng.standard_normal((4, nt))
+    y /= np.array([1.0, 1e1, 1e3, 1e6])[:, None]
+    x *= x_scale
+    xt = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=cuda_device)
+    taps = rng.standard_normal(ntaps) / ntaps if ntaps else None
+    navr = (nt - nwins) // hop + 1
+    win = np.hanning(nwins + 1)[:-1]
+    kw = dict(navr=navr, nwins=nwins, hop=hop, taps=taps, detrend_style=1)
+    got = pw.welch_cuda(xt, yt, win, nwins // 2 + 1, 1.0 / navr, **kw)
+    ref = pw.welch_plain(xt.double(), yt.double(), win, nwins // 2 + 1,
+                         1.0 / navr, **kw)
+
+    def err(g, r):
+        return ((g.to(r.dtype) - r).abs().max() / r.abs().max()).item()
+
+    assert err(got[0], ref[0]) <= 2e-5
+    for c in range(4):
+        assert err(got[1][c], ref[1][c]) <= 2e-5
+        assert err(torch.complex(got[2][c], got[3][c]),
+                   torch.complex(ref[2][c], ref[3][c])) <= 2e-5
 
 
 def _stft_sizes():
@@ -466,10 +508,10 @@ def test_measure_pipeline_overlap_on_card(cuda_device):
 def test_welch_packed_kernel_matches_plain_on_card(cuda_device, pair, nt,
                                                    nwins, hop, ntaps, detrend,
                                                    nf, amp):
-    """Kernel H (kernel B's packed modes) vs its plain version (kernel
-    B's, at nch = 0 or 1) in float64 on the card: max |diff| / max |ref|
-    <= 2e-5 per output (float32 FFTs of two real sequences at once, float64
-    sums)."""
+    """Kernel H (csrc/welch_pair.cu, launched as packed) vs its plain
+    version (kernel B's, at nch = 0 or 1) in float64 on the card: max
+    |diff| / max |ref| <= 2e-5 per output (float32 FFTs of two real
+    sequences at once, float64 sums)."""
     rng = np.random.default_rng(nt + nwins + pair)
     xt = torch.as_tensor(rng.standard_normal(nt) + 0.3, dtype=torch.float32,
                          device=cuda_device)
@@ -492,6 +534,36 @@ def test_welch_packed_kernel_matches_plain_on_card(cuda_device, pair, nt,
         assert g.shape == r.shape
         err = ((g.double() - r).abs().max() / r.abs().max()).item()
         assert err <= 2e-5
+
+
+@pytest.mark.cuda
+def test_welch_pair_packed_holds_a_quiet_channel_on_card(cuda_device):
+    """welch_pair_packed on a pair at 1:1000 (y the delayed x plus noise,
+    divided by 1000): kernel H launches once and each output, Pyy above
+    all, holds 2e-5 of its own max |ref| (before the per-sequence scaling
+    the quiet sequence carried the loud one's float32 error)."""
+    from pyfft_tpu_torch.ops import welch_packed as pwp
+    rng = np.random.default_rng(17)
+    nt, nwins, nov = 1 << 18, 1024, 512
+    x = rng.standard_normal(nt)
+    y = (0.5 * np.roll(x, 5) + rng.standard_normal(nt)) / 1000
+    xt = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=cuda_device)
+    navr = (nt - nov) // (nwins - nov)
+    win = np.hanning(nwins + 1)[:-1]
+    nf = nwins // 2 + 1
+    h0 = pw.PACKED_LAUNCHES
+    got = pwp.welch_pair_packed(xt, yt, win, nf, 1.0 / navr, navr=navr,
+                                nwins=nwins, noverlap=nov, detrend_style=1)
+    assert pw.PACKED_LAUNCHES == h0 + 1
+    ref = pw.welch_plain(xt.double(), yt[None].double(), win, nf, 1.0 / navr,
+                         navr=navr, nwins=nwins, hop=nwins - nov,
+                         detrend_style=1)
+    for g, r in zip(got[:2], ref[:2]):
+        assert ((g.double() - r).abs().max() / r.abs().max()).item() <= 2e-5
+    gp, rp = torch.complex(got[2], got[3]), torch.complex(ref[2], ref[3])
+    assert ((gp.to(rp.dtype) - rp).abs().max() / rp.abs().max()).item() \
+        <= 2e-5
 
 
 @pytest.mark.cuda
