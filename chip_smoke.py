@@ -1186,10 +1186,6 @@ def main():
                               "temperature.gpu"), **b14)
         check(err <= WELCH_TOL, f"kernel H config 1 K={ntaps}: rel err {err}")
         check(err_b <= WELCH_TOL, f"kernel B nch=0 K={ntaps}: rel err {err_b}")
-        if taps is None:
-            kernels["welch_packed"] = dict(max_abs_err=err * scale, ms=ms,
-                                           plain_ms=plain_ms,
-                                           library_ms=None, **b14)
         # one traced call of each: its wall, the device's busy time by
         # kernel or copy, and the share of the wall the device was idle
         prof14 = {}
@@ -1202,6 +1198,12 @@ def main():
         check(prof14["kernel_h"]["welch_pair_kernel_ms"] > 0
               and prof14["kernel_b_nch0"]["welch_pair_kernel_ms"] > 0,
               "the profiler saw no welch_pair_kernel")
+        if taps is None:
+            kernels["welch_packed"] = dict(
+                max_abs_err=err * scale, ms=ms, plain_ms=plain_ms,
+                library_ms=None,
+                kernel_device_ms=prof14["kernel_h"]["welch_pair_kernel_ms"],
+                **b14)
         check(prof14["kernel_h"]["h2d_pageable"] == 0,
               f"kernel H config 1: {prof14['kernel_h']['h2d_pageable']} "
               f"pageable host -> device copies in a call after the first")
@@ -1364,8 +1366,14 @@ def main():
         for k, (e, _) in errs.items():
             check(e <= WELCH_TOL, f"kernel B {name} {k}: rel err {e}")
         if name.startswith("a_"):
+            prof16 = trace_call(lambda: welch.welch_cuda(
+                x, y, win, nf, 1.0 / navr, **kw), "welch_pair_kernel")
+            emit("welch_v2_profile", case=name, **prof16)
+            check(prof16["kernel_ms"] > 0, "the profiler saw no "
+                  "welch_pair_kernel at the v2 geometry")
             kernels["welch_v2"] = dict(max_abs_err=max_abs, ms=ms,
                                        plain_ms=plain_ms, library_ms=None,
+                                       kernel_device_ms=prof16["kernel_ms"],
                                        **b16)
     del cases16, x, y
     torch.cuda.empty_cache()

@@ -31,12 +31,14 @@
 // follows |Z|; scaled, a quiet channel beside a loud reference keeps the
 // accuracy it would have alone.
 //
-// What bounds it on the card: the filter.  At bench config 0 (8 channels of
-// 2^25 samples, N = 2048, hop 1024, 129 taps) each channel's block filters
-// x and y_c once each, 2 * hop * K FMAs a unit (6.9e10 in all), two
-// shared-memory loads per FMA (one a broadcast of the tap, shared by the two
-// sequences' outputs); the transforms are 262k of 2048 points.  Against
-// that the signals are read about once per channel from L2.  Design:
+// What bounds it on the card.  At bench config 0 (8 channels of 2^25
+// samples, N = 2048, hop 1024, 129 taps) each channel's blocks filter x and
+// y_c once each, 2 * hop * K FMAs a unit (6.9e10 in all), and run 262k
+// transforms of 2048 points with their float64 sums; the signals are read
+// about once per channel, mostly from L2.  Unblocked, the filter was
+// bound by shared-memory loads (one or two per FMA); blocked, the
+// transforms and the barriers between a unit's phases take most of the
+// time (PERF.md).  Design:
 // - blocks of N/16 threads (fft_reg.cuh's register-radix Stockham FFT: 16
 //   points a thread, log16 N passes through padded shared memory, natural
 //   order out); persistent blocks over (segment group, channel) items, as
@@ -48,19 +50,26 @@
 //   filters only the samples its predecessor did not (hop per sequence;
 //   the first unit of a group its whole span) into the slots no longer
 //   needed, so each sample of a span is filtered once per block.  Threads
-//   read and write the ring at consecutive times, so neighbouring threads
-//   hit neighbouring banks and the ring needs no padding.  The raw samples
-//   of the new span (hop + K - 1 per sequence) are staged in the FFT's
+//   read the ring at consecutive times, so neighbouring threads hit
+//   neighbouring banks and the ring needs no padding.  The raw samples of
+//   the new span (hop + K - 1 per sequence) are staged in the FFT's
 //   buffer, which is free until the first pass stores.
+// - the filter is register-blocked (fir4): a thread makes 4 consecutive
+//   outputs of both sequences from 16-byte loads, one of 4 taps (a
+//   broadcast) and one of 4 samples per sequence for 32 FMAs, with
+//   fir_point's products in fir_point's order, so the blocking changes no
+//   result.  At hop 128 only a quarter of the threads filter.
 // - at N = 16384 the ring (128 KB) and the FFT buffer (139 KB) do not fit
 //   in the 227 KB of a block together: there each unit filters its whole
 //   span (N + K - 1 staged samples a sequence) straight into the first
-//   pass's registers, as kernel B did before.
+//   pass's registers with fir_pair, as kernel B did before.
 // - per-bin sums in float64 registers (8 bin pairs j, N - j a thread; bin
 //   N/2 in shared memory, owned by thread 0); each item writes its
 //   group's partials in the (ngroups, nch + 1, 3, nbins) layout, which
 //   sum_partials (reduce.cuh) sums in a fixed order and scales by `norm`.
-//   At N = 16384 (1024 threads, 64 registers a thread) the sums spill.
+//   At N = 2048 to 8192 nothing spills (128 registers); the sums spill at
+//   N = 16384 (1024 threads, 64 registers a thread) and, by a few hundred
+//   bytes, at N <= 64 (ptxas, the build's build.log).
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -89,17 +98,27 @@ __host__ __device__ constexpr int min_blocks(int logn) {
                                        : 512 / block_threads(logn);
 }
 
-// Floats of the region that holds the FFT buffer (pad(N) float2) and, before
-// each transform, the raw samples of two sequences (N + K - 1 each).
-__host__ __device__ constexpr int stage_floats(int logn, int K) {
-    return ((2 * fftreg::pad(1 << logn) > 2 * ((1 << logn) + K - 1)
-                 ? 2 * fftreg::pad(1 << logn)
-                 : 2 * ((1 << logn) + K - 1)) + 3) & ~3;
+// Floats one sequence's raw samples take in the staging region: up to
+// N + K - 1 staged, read up to 7 past them by fir4's 16-byte loads, rounded
+// to 16 bytes.
+__host__ __device__ constexpr int seq_floats(int logn, int K) {
+    return ((1 << logn) + K + 10) & ~3;
 }
 
+// Floats of the region that holds the FFT buffer (pad(N) float2) and, before
+// each transform, the raw samples of two sequences.
+__host__ __device__ constexpr int stage_floats(int logn, int K) {
+    return ((2 * fftreg::pad(1 << logn) > 2 * seq_floats(logn, K)
+                 ? 2 * fftreg::pad(1 << logn)
+                 : 2 * seq_floats(logn, K)) + 3) & ~3;
+}
+
+// Shared memory: the staging region, the ring where it fits, the taps
+// reversed (padded to a multiple of 4) and the taps in order.
 size_t smem_bytes(int logn, int K) {
     return sizeof(float) * (stage_floats(logn, K) +
-                            (logn <= kRingMaxLogN ? 2 << logn : 0) + K);
+                            (logn <= kRingMaxLogN ? 2 << logn : 0) +
+                            ((K + 3) & ~3) + K);
 }
 
 // Sums a and b over the T threads of the block; every thread gets the same
@@ -164,6 +183,78 @@ __device__ __forceinline__ float2 fir_pair(const float* a, const float* b,
     return make_float2(sa, sb);
 }
 
+// o[i] += t * w[E + i], i < 4.
+template <int E>
+__device__ __forceinline__ void fma4(float (&o)[4], float t,
+                                     const float (&w)[8]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = fmaf(t, w[E + i], o[i]);
+}
+
+__device__ __forceinline__ void window8(float (&w)[8], float4 lo, float4 hi) {
+    w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
+    w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
+}
+
+// Outputs j0 .. j0 + 3 (j0 a multiple of 4) of fir_point for sequence a
+// (and b, with TWO), from raw samples at 16-byte-aligned a and b and the
+// taps reversed in rt (rt[d] = taps[K - 1 - d], 16-byte aligned).  Output
+// j sums rt[d] * s[j + d] for d from K - 1 down to 0, fir_point's products
+// in fir_point's order.  Per 4 taps: one 16-byte load of taps (a
+// broadcast) and one of samples per sequence, for 16 FMAs per sequence;
+// the other 16 bytes of a thread's window of 8 samples carry over.
+template <bool TWO>
+__device__ __forceinline__ void fir4(const float* a, const float* b,
+                                     const float* rt, int K, int j0,
+                                     float (&oa)[4], float (&ob)[4]) {
+    const float4* pa = reinterpret_cast<const float4*>(a + j0);
+    const float4* pb = reinterpret_cast<const float4*>(b + j0);
+    const float4* pt = reinterpret_cast<const float4*>(rt);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) oa[i] = ob[i] = 0.f;
+    int g = (K - 1) >> 2;   // the group of d = 4g .. 4g + 3
+    float4 ha = pa[g + 1], hb = TWO ? pb[g + 1] : ha;
+    float wa[8], wb[8];
+    {
+        // the top group holds d <= K - 1 only
+        const float4 la = pa[g], lb = TWO ? pb[g] : la, t = pt[g];
+        const int emax = K - 1 - 4 * g;
+        window8(wa, la, ha);
+        window8(wb, lb, hb);
+        if (emax >= 3) {
+            fma4<3>(oa, t.w, wa);
+            if (TWO) fma4<3>(ob, t.w, wb);
+        }
+        if (emax >= 2) {
+            fma4<2>(oa, t.z, wa);
+            if (TWO) fma4<2>(ob, t.z, wb);
+        }
+        if (emax >= 1) {
+            fma4<1>(oa, t.y, wa);
+            if (TWO) fma4<1>(ob, t.y, wb);
+        }
+        fma4<0>(oa, t.x, wa);
+        if (TWO) fma4<0>(ob, t.x, wb);
+        ha = la;
+        hb = lb;
+    }
+    for (--g; g >= 0; --g) {
+        const float4 la = pa[g], lb = TWO ? pb[g] : la, t = pt[g];
+        window8(wa, la, ha);
+        window8(wb, lb, hb);
+        fma4<3>(oa, t.w, wa);
+        if (TWO) fma4<3>(ob, t.w, wb);
+        fma4<2>(oa, t.z, wa);
+        if (TWO) fma4<2>(ob, t.z, wb);
+        fma4<1>(oa, t.y, wa);
+        if (TWO) fma4<1>(ob, t.y, wb);
+        fma4<0>(oa, t.x, wa);
+        if (TWO) fma4<0>(ob, t.x, wb);
+        ha = la;
+        hb = lb;
+    }
+}
+
 // One bin's terms from z = Z_k and w = Z_{N-k} of scaled sequences, with
 // fa = 4^a, fb = 4^b, fab = 2^(a+b).  pair: |X|^2, |Y|^2, Re and Im of
 // Y conj X; auto: |X|^2 + |Y|^2 (|X|^2 alone for a lone segment).
@@ -223,10 +314,15 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
     float2* buf = reinterpret_cast<float2*>(smem);
     float* raw = reinterpret_cast<float*>(smem);   // before the transform
     float* ring = raw + stage_floats(LOGN, K);
-    float* taps = ring + (kRing ? 2 * N : 0);
+    float* rtaps = ring + (kRing ? 2 * N : 0);
+    float* taps = rtaps + ((K + 3) & ~3);
     const int t = threadIdx.x;
-    const int rowlen = N + K - 1;
-    for (int k = t; k < K; k += T) taps[k] = taps_g[k];
+    const int seq = seq_floats(LOGN, K);   // raw b follows raw a
+    for (int k = t; k < K; k += T) {
+        const float tap = taps_g[k];
+        taps[k] = tap;
+        rtaps[K - 1 - k] = tap;
+    }
     // (the first read of taps follows an item's first barrier)
 
     const bool pair = nch > 0;
@@ -265,17 +361,21 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 const int mask = pair ? N - 1 : 2 * N - 1;
                 float* ring_b = pair ? ring + N : ring;
                 stage<T>(raw, x, from, nnew + K - 1, K);
-                if (pair) stage<T>(raw + rowlen, sb_sig, from, nnew + K - 1, K);
+                if (pair) stage<T>(raw + seq, sb_sig, from, nnew + K - 1, K);
                 __syncthreads();
-                for (int j = t; j < nnew; j += T) {
-                    const int slot = static_cast<int>((from + j) & mask);
-                    if (pair) {
-                        const float2 f = fir_pair(raw + j, raw + rowlen + j,
-                                                  taps, K);
-                        ring[slot] = f.x - mx;
-                        ring_b[slot] = f.y - mb;
-                    } else {
-                        ring[slot] = fir_point(raw + j, taps, K) - mx;
+                for (int j0 = 4 * t; j0 < nnew; j0 += 4 * T) {
+                    float fa[4], fb[4];
+                    if (pair)
+                        fir4<true>(raw, raw + seq, rtaps, K, j0, fa, fb);
+                    else
+                        fir4<false>(raw, raw, rtaps, K, j0, fa, fb);
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        if (j0 + i >= nnew) break;
+                        const int slot =
+                            static_cast<int>((from + j0 + i) & mask);
+                        ring[slot] = fa[i] - mx;
+                        if (pair) ring_b[slot] = fb[i] - mb;
                     }
                 }
                 __syncthreads();
@@ -291,8 +391,8 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 }
             } else {
                 // the whole span of each sequence, filtered into registers
-                stage<T>(raw, x, sa, rowlen, K);
-                if (has_b) stage<T>(raw + rowlen, sb_sig, sb, rowlen, K);
+                stage<T>(raw, x, sa, N + K - 1, K);
+                if (has_b) stage<T>(raw + seq, sb_sig, sb, N + K - 1, K);
                 __syncthreads();
 #pragma unroll
                 for (int r = 0; r < P; ++r) {
@@ -300,7 +400,7 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float w = __ldg(win + n);
                     if (has_b) {
                         const float2 f =
-                            fir_pair(raw + n, raw + rowlen + n, taps, K);
+                            fir_pair(raw + n, raw + seq + n, taps, K);
                         v[r] = make_float2((f.x - mx) * w, (f.y - mb) * w);
                     } else {
                         v[r] = make_float2(
