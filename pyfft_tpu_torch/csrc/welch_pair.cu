@@ -45,21 +45,23 @@
 //   many as the card holds at once (found once per device and taps count);
 //   a block walks the consecutive units of its group.
 // - the filtered, mean-removed samples of a block's two sequences live in a
-//   shared ring indexed by time mod N (pair: one ring of N per sequence;
-//   auto: one ring of 2N, which holds a unit's span N + hop).  A unit
-//   filters only the samples its predecessor did not (hop per sequence;
-//   the first unit of a group its whole span) into the slots no longer
-//   needed, so each sample of a span is filtered once per block.  Threads
-//   read the ring at consecutive times, so neighbouring threads hit
+//   shared ring indexed by time mod its length (pair: 2N a sequence; auto:
+//   one ring of 4N, a unit's span being N + hop).  A unit filters only the
+//   samples its predecessors did not (hop per sequence; the first unit of
+//   a group its whole span) into slots no longer needed, so each sample of
+//   a span is filtered once per block.  Where that is less than 4 outputs
+//   a thread (hop < N/4, e.g. 128 at N = 2048) it filters ahead, several
+//   units' samples at once, as far as the ring and the group reach.
+//   Threads read the ring at consecutive times, so neighbouring threads hit
 //   neighbouring banks and the ring needs no padding.  The raw samples of
-//   the new span (hop + K - 1 per sequence) are staged in the FFT's
+//   the new span (up to N + K - 1 per sequence) are staged in the FFT's
 //   buffer, which is free until the first pass stores.
 // - the filter is register-blocked (fir4): a thread makes 4 consecutive
 //   outputs of both sequences from 16-byte loads, one of 4 taps (a
 //   broadcast) and one of 4 samples per sequence for 32 FMAs, with
 //   fir_point's products in fir_point's order, so the blocking changes no
-//   result.  At hop 128 only a quarter of the threads filter.
-// - at N = 16384 the ring (128 KB) and the FFT buffer (139 KB) do not fit
+//   result.
+// - at N = 16384 the ring (256 KB) and the FFT buffer (139 KB) do not fit
 //   in the 227 KB of a block together: there each unit filters its whole
 //   span (N + K - 1 staged samples a sequence) straight into the first
 //   pass's registers with fir_pair, as kernel B did before.
@@ -117,7 +119,7 @@ __host__ __device__ constexpr int stage_floats(int logn, int K) {
 // reversed (padded to a multiple of 4) and the taps in order.
 size_t smem_bytes(int logn, int K) {
     return sizeof(float) * (stage_floats(logn, K) +
-                            (logn <= kRingMaxLogN ? 2 << logn : 0) +
+                            (logn <= kRingMaxLogN ? 4 << logn : 0) +
                             ((K + 3) & ~3) + K);
 }
 
@@ -314,7 +316,7 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
     float2* buf = reinterpret_cast<float2*>(smem);
     float* raw = reinterpret_cast<float*>(smem);   // before the transform
     float* ring = raw + stage_floats(LOGN, K);
-    float* rtaps = ring + (kRing ? 2 * N : 0);
+    float* rtaps = ring + (kRing ? 4 * N : 0);
     float* taps = rtaps + ((K + 3) & ~3);
     const int t = threadIdx.x;
     const int seq = seq_floats(LOGN, K);   // raw b follows raw a
@@ -347,39 +349,56 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
             for (int r = 0; r < 4; ++r) nyq[r] = 0.0;
         const int u0 = g * per_group;
         const int u1 = min(nunits, u0 + per_group);
-        long long filtered = 0;   // ring: times below this are filtered
+        // the end of the group's last span: filtering ahead stops there
+        const int ul = u1 - 1;
+        [[maybe_unused]] const long long group_hi =
+            static_cast<long long>(pair ? ul : 2 * ul) * hop + N +
+            (!pair && 2 * ul + 1 < navr ? hop : 0);
+        [[maybe_unused]] long long filtered = 0;   // times already in the ring
         for (int u = u0; u < u1; ++u) {
             const long long sa = static_cast<long long>(pair ? u : 2 * u) * hop;
             const long long sb = pair ? sa : sa + hop;
             const bool has_b = pair || 2 * u + 1 < navr;
             float2 v[P];
             if constexpr (kRing) {
-                // the new samples [from, hi) of each sequence into the ring
+                // ring of len samples a sequence, indexed by time mod len
+                const int len = pair ? 2 * N : 4 * N;
+                const int mask = len - 1;
+                float* ring_b = pair ? ring + 2 * N : ring;
                 const long long hi = (has_b ? sb : sa) + N;
-                const long long from = u == u0 ? sa : filtered;
-                const int nnew = static_cast<int>(hi - from);
-                const int mask = pair ? N - 1 : 2 * N - 1;
-                float* ring_b = pair ? ring + N : ring;
-                stage<T>(raw, x, from, nnew + K - 1, K);
-                if (pair) stage<T>(raw + seq, sb_sig, from, nnew + K - 1, K);
-                __syncthreads();
-                for (int j0 = 4 * t; j0 < nnew; j0 += 4 * T) {
-                    float fa[4], fb[4];
+                if (u == u0) filtered = sa;
+                if (filtered < hi) {
+                    // the samples [from, to) of each sequence into the
+                    // ring: this unit's new ones, and ahead of them at
+                    // least 4 outputs a thread (at small hop, several
+                    // units' worth), as far as the ring and the group reach
+                    const long long from = filtered;
+                    long long to = hi > from + 4 * T ? hi : from + 4 * T;
+                    if (to > sa + len) to = sa + len;
+                    if (to > group_hi) to = group_hi;
+                    const int nnew = static_cast<int>(to - from);
+                    stage<T>(raw, x, from, nnew + K - 1, K);
                     if (pair)
-                        fir4<true>(raw, raw + seq, rtaps, K, j0, fa, fb);
-                    else
-                        fir4<false>(raw, raw, rtaps, K, j0, fa, fb);
+                        stage<T>(raw + seq, sb_sig, from, nnew + K - 1, K);
+                    __syncthreads();
+                    for (int j0 = 4 * t; j0 < nnew; j0 += 4 * T) {
+                        float fa[4], fb[4];
+                        if (pair)
+                            fir4<true>(raw, raw + seq, rtaps, K, j0, fa, fb);
+                        else
+                            fir4<false>(raw, raw, rtaps, K, j0, fa, fb);
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        if (j0 + i >= nnew) break;
-                        const int slot =
-                            static_cast<int>((from + j0 + i) & mask);
-                        ring[slot] = fa[i] - mx;
-                        if (pair) ring_b[slot] = fb[i] - mb;
+                        for (int i = 0; i < 4; ++i) {
+                            if (j0 + i >= nnew) break;
+                            const int slot =
+                                static_cast<int>((from + j0 + i) & mask);
+                            ring[slot] = fa[i] - mx;
+                            if (pair) ring_b[slot] = fb[i] - mb;
+                        }
                     }
+                    __syncthreads();
+                    filtered = to;
                 }
-                __syncthreads();
-                filtered = hi;
 #pragma unroll
                 for (int r = 0; r < P; ++r) {
                     const int n = t + r * T;

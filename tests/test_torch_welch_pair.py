@@ -10,10 +10,12 @@ arithmetic is held here as a float64 emulation of its plan:
   segments ``2p`` and ``2p + 1`` of x (``nch = 0``, the last segment of an
   odd count alone);
 - the shared ring of filtered, mean-removed samples indexed by time mod
-  ``N`` (``2N`` for ``nch = 0``), filled in the kernel's order: a unit
-  filters only the samples its predecessor did not, from staged raw
-  samples; the ring starts as NaN, so a read of a slot not yet filled
-  shows; at ``N = 16384`` each unit filters its whole span instead;
+  ``2N`` a sequence (``4N`` for ``nch = 0``), filled in the kernel's
+  order: a unit filters only the samples its predecessors did not, from
+  staged raw samples, and at small hop at least 4 outputs a thread ahead,
+  as far as the ring and the group reach; the ring starts as NaN, so a
+  read of a slot not yet filled shows; at ``N = 16384`` each unit filters
+  its whole span instead;
 - each sequence scaled by its own power of two (``scale_exponent``), the
   register-radix transform of ``csrc/fft_reg.cuh`` (``_transform`` of
   tests/test_torch_stft.py), the split ``X = (Z_k + conj Z_{N-k}) / 2``,
@@ -88,25 +90,34 @@ def _emulate(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend,
 
     for g in range(ngroups):
         for c in (range(1, nch + 1) if pair else [0]):
-            ring = np.full(2 * N, np.nan)
-            mask = N if pair else 2 * N
+            length = 2 * N if pair else 4 * N     # ring samples a sequence
+            ring = np.full(2 * length if pair else length, np.nan)
             A, B, lone = [], [], []
+            u0, u1 = g * per_group, min(nunits, (g + 1) * per_group)
+            ul = u1 - 1
+            group_hi = ((ul if pair else 2 * ul) * hop + N
+                        + (hop if not pair and 2 * ul + 1 < navr else 0))
             filtered = None
-            for u in range(g * per_group, min(nunits, (g + 1) * per_group)):
+            for u in range(u0, u1):
                 sa = (u if pair else 2 * u) * hop
                 sb = sa if pair else sa + hop
                 has_b = pair or 2 * u + 1 < navr
                 if logn <= _RING_MAX_LOGN:
                     hi = (sb if has_b else sa) + N
-                    frm = sa if filtered is None else filtered
-                    slots = np.arange(frm, hi) % mask
-                    ring[slots] = filt(0, frm, hi - frm)
-                    if pair:
-                        ring[N + slots] = filt(c, frm, hi - frm)
-                    filtered = hi
-                    a = ring[(sa + n) % mask]
-                    b = (ring[(N if pair else 0) + (sb + n) % mask] if has_b
-                         else 0 * a)
+                    if filtered is None:
+                        filtered = sa
+                    if filtered < hi:      # filter ahead: >= 4 a thread
+                        to = min(max(hi, filtered + 4 * T), sa + length,
+                                 group_hi)
+                        slots = np.arange(filtered, to) % length
+                        ring[slots] = filt(0, filtered, to - filtered)
+                        if pair:
+                            ring[length + slots] = filt(c, filtered,
+                                                        to - filtered)
+                        filtered = to
+                    a = ring[(sa + n) % length]
+                    b = (ring[(length if pair else 0) + (sb + n) % length]
+                         if has_b else 0 * a)
                 else:
                     a = filt(0, sa, N)[n]
                     b = filt(c, sb, N)[n] if has_b else 0 * a
