@@ -171,6 +171,17 @@ __device__ __forceinline__ void load_pass(float2 (&v)[kPoints],
     }
 }
 
+// The power of two 2^e that brings a sequence whose sum of squares is ss
+// into [0.5, 2) (ss / 4^e there), so that two real sequences sharing one
+// transform each keep their own accuracy; 0 for a zero sequence.  Kept to
+// +-100 so that 2^-e and a norm times 2^e stay in float range.
+__device__ __forceinline__ int scale_exponent(double ss) {
+    int e2 = 0;
+    frexp(ss, &e2);
+    const int e = e2 >> 1;
+    return e < -100 ? -100 : e > 100 ? 100 : e;
+}
+
 // Passes P.. of the transform whose pass-P inputs thread t holds in v,
 // through `buf` (pad(N) float2).  On return `buf` holds the spectrum in
 // natural order and every thread of the block has passed the barrier after

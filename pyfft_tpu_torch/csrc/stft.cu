@@ -97,16 +97,6 @@ __device__ __forceinline__ void transform_sums(double& a, double& b,
     }
 }
 
-// The power of two 2^e that brings a segment whose sum of squares is ss
-// into [0.5, 2) (ss / 4^e there); 0 for a zero segment.  Kept to +-100 so
-// that 2^-e and norm * 2^e stay in float range.
-__device__ __forceinline__ int scale_exponent(double ss) {
-    int e2 = 0;
-    frexp(ss, &e2);
-    const int e = e2 >> 1;
-    return e < -100 ? -100 : e > 100 ? 100 : e;
-}
-
 template <int LOGN>
 __global__ void __launch_bounds__(block_threads(LOGN), min_blocks(LOGN))
 stft_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -182,8 +172,8 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 sb += static_cast<double>(v[r].y) * v[r].y;
             }
             transform_sums<T>(sa, sb, red);
-            ea = scale_exponent(sa);
-            eb = scale_exponent(sb);
+            ea = fftreg::scale_exponent(sa);
+            eb = fftreg::scale_exponent(sb);
             const float ka = ldexpf(1.f, -ea), kb = ldexpf(1.f, -eb);
 #pragma unroll
             for (int r = 0; r < P; ++r) {

@@ -12,9 +12,8 @@
 //   col 0:      |X|^2
 //   col c + 1:  |Y_c|^2,  Re(Y_c conj X),  Im(Y_c conj X)
 // where X is the reference signal's transform.  Signals are interleaved
-// complex64 (cplx = 1) and filter their real and imaginary parts
-// separately; the kernel also takes rows of float32 (cplx = 0), which the
-// wrapper no longer sends it.  The filtered signal never goes to device
+// complex64 and filter their real and imaginary parts separately
+// (load_segment with cplx = 1).  The filtered signal never goes to device
 // memory.  One segment of one signal per FFT; grid (group) x (column).
 //
 // What bounds it on the card: per segment and column about
@@ -55,8 +54,7 @@ __device__ __forceinline__ void store(double* out, int nfreq, int k,
 template <int B>
 __global__ void __launch_bounds__(kMaxThreads, (B <= 4) ? 2 : 1)
 welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
-             long long y_row_stride, int estride, int cplx,
-             const float* __restrict__ taps_g, int K,
+             long long y_row_stride, const float* __restrict__ taps_g, int K,
              const float* __restrict__ means, const float* __restrict__ win,
              const float2* __restrict__ tw, double* __restrict__ part, int N,
              int logN, int hop, int navr, int per_group, int nfreq) {
@@ -69,13 +67,12 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int k = threadIdx.x; k < K; k += T) taps[k] = taps_g[k];
     // (load_component synchronises before the first read of `taps`)
 
-    const int nc = cplx ? 2 : 1;
     const float mx_re = means[0];
-    const float mx_im = cplx ? means[1] : 0.f;
+    const float mx_im = means[1];
     const float* ysig =
         col ? y + static_cast<long long>(col - 1) * y_row_stride : nullptr;
-    const float my_re = col ? means[nc * col] : 0.f;
-    const float my_im = (col && cplx) ? means[nc * col + 1] : 0.f;
+    const float my_re = col ? means[2 * col] : 0.f;
+    const float my_im = col ? means[2 * col + 1] : 0.f;
 
     double acc[B][3];
     float xre[B], xim[B];
@@ -89,8 +86,8 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const int f1 = min(navr, f0 + per_group);
     for (int f = f0; f < f1; ++f) {
         const long long start = static_cast<long long>(f) * hop;
-        load_segment(buf, raw, taps, K, x, estride, cplx, mx_re, mx_im, win,
-                     start, N, logN);
+        load_segment(buf, raw, taps, K, x, 2, 1, mx_re, mx_im, win, start, N,
+                     logN);
         fft_radix2(buf, tw, N, logN);
         if (col == 0) {
 #pragma unroll
@@ -114,8 +111,8 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
             }
         }
         __syncthreads();
-        load_segment(buf, raw, taps, K, ysig, estride, cplx, my_re, my_im,
-                     win, start, N, logN);
+        load_segment(buf, raw, taps, K, ysig, 2, 1, my_re, my_im, win, start,
+                     N, logN);
         fft_radix2(buf, tw, N, logN);
 #pragma unroll
         for (int b = 0; b < B; ++b) {
@@ -160,7 +157,7 @@ Geometry geometry(int N, int K) {
 template <int B>
 int launch(const Geometry& geo, dim3 grid, cudaStream_t stream,
            const float* x, const float* y, long long y_row_stride,
-           int estride, int cplx, const float* taps, int K,
+           const float* taps, int K,
            const float* means, const float* win, const float2* tw,
            double* part, int N, int hop, int navr, int per_group, int nfreq) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -168,36 +165,29 @@ int launch(const Geometry& geo, dim3 grid, cudaStream_t stream,
         static_cast<int>(geo.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     welch_kernel<B><<<grid, geo.threads, geo.smem, stream>>>(
-        x, y, y_row_stride, estride, cplx, taps, K, means, win, tw, part, N,
+        x, y, y_row_stride, taps, K, means, win, tw, part, N,
         geo.logN, hop, navr, per_group, nfreq);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory one block of welch_kernel needs.
-extern "C" long long pyfft_welch_smem_bytes(int nwins, int K) {
-    return static_cast<long long>(geometry(nwins, K).smem);
-}
-
 // x: reference signal, y: nch signals with row stride `y_row_stride`
-// floats; `estride` is 1 (float32 rows) or 2 (interleaved complex64, with
-// cplx = 1).  means: (nch+1) * (1 + cplx) float32, reference first.
-// win: (nwins,) float32.  tw: (nwins/2,) complex64.  part: (ngroups,
-// nch+1, 3, nfreq) float64 scratch.  out: (nch+1, 3, nfreq) float32.
-// Returns cudaGetLastError() after the second launch (or the first error).
+// floats, interleaved complex64.  means: (nch+1) * 2 float32 (re, im),
+// reference first.  win: (nwins,) float32.  tw: (nwins/2,) complex64.
+// part: (ngroups, nch+1, 3, nfreq) float64 scratch.  out: (nch+1, 3,
+// nfreq) float32.  Returns cudaGetLastError() after the second launch (or
+// the first error).
 extern "C" int pyfft_welch(const float* x, const float* y,
-                           long long y_row_stride, int estride, int cplx,
-                           const float* taps, int K, const float* means,
-                           const float* win, const void* tw, double* part,
-                           float* out, int nch, int nwins, int hop, int navr,
-                           int ngroups, int nfreq, double norm,
-                           void* stream_ptr) {
+                           long long y_row_stride, const float* taps, int K,
+                           const float* means, const float* win,
+                           const void* tw, double* part, float* out, int nch,
+                           int nwins, int hop, int navr, int ngroups,
+                           int nfreq, double norm, void* stream_ptr) {
     const int N = nwins;
     if (N < kMinN || N > kMaxN || (N & (N - 1)) || K < 1 || K > kFirMaxTaps ||
         hop < 1 || hop > N || navr < 1 || ngroups < 1 || nch < 0 ||
-        nch + 1 > 65535 || nfreq < 1 || nfreq > N ||
-        estride != 1 + (cplx ? 1 : 0))
+        nch + 1 > 65535 || nfreq < 1 || nfreq > N)
         return static_cast<int>(cudaErrorInvalidValue);
     const Geometry geo = geometry(N, K);
     const int per_group = (navr + ngroups - 1) / ngroups;
@@ -209,9 +199,9 @@ extern "C" int pyfft_welch(const float* x, const float* y,
     switch (geo.bins) {
 #define PYFFT_WELCH_CASE(BV)                                                 \
     case BV:                                                                 \
-        rc = launch<BV>(geo, grid, stream, x, y, y_row_stride, estride,      \
-                        cplx, taps, K, means, win, twf, part, N, hop, navr,  \
-                        per_group, nfreq);                                   \
+        rc = launch<BV>(geo, grid, stream, x, y, y_row_stride, taps, K,      \
+                        means, win, twf, part, N, hop, navr, per_group,      \
+                        nfreq);                                              \
         break;
         PYFFT_WELCH_CASE(1)
         PYFFT_WELCH_CASE(2)

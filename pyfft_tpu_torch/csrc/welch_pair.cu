@@ -69,9 +69,9 @@
 //   N/2 in shared memory, owned by thread 0); each item writes its
 //   group's partials in the (ngroups, nch + 1, 3, nbins) layout, which
 //   sum_partials (reduce.cuh) sums in a fixed order and scales by `norm`.
-//   At N = 2048 to 8192 nothing spills (128 registers); the sums spill at
-//   N = 16384 (1024 threads, 64 registers a thread) and, by a few hundred
-//   bytes, at N <= 64 (ptxas, the build's build.log).
+//   At N = 128, 256 and 1024 to 8192 nothing spills (128 registers); the
+//   sums spill 632 bytes at N = 16384 (1024 threads, 64 registers a
+//   thread), 80 at 512 and 120-332 at N <= 64 (ptxas, the build.log).
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -146,16 +146,6 @@ __device__ __forceinline__ void block_sums(double& a, double& b,
             b += red[i].y;
         }
     }
-}
-
-// The power of two 2^e that brings a sequence whose sum of squares is ss
-// into [0.5, 2) (ss / 4^e there); 0 for a zero sequence.  Kept to +-100 so
-// that 2^-e stays in float range.  (stft.cu's rule.)
-__device__ __forceinline__ int scale_exponent(double ss) {
-    int e2 = 0;
-    frexp(ss, &e2);
-    const int e = e2 >> 1;
-    return e < -100 ? -100 : e > 100 ? 100 : e;
 }
 
 // raw[j] = sig[from - (K - 1) + j] for j < count, zero before the signal.
@@ -436,7 +426,8 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 ssb += static_cast<double>(v[r].y) * v[r].y;
             }
             block_sums<T>(ssa, ssb, red);
-            const int ea = scale_exponent(ssa), eb = scale_exponent(ssb);
+            const int ea = fftreg::scale_exponent(ssa);
+            const int eb = fftreg::scale_exponent(ssb);
             const float ka = ldexpf(1.f, -ea), kb = ldexpf(1.f, -eb);
 #pragma unroll
             for (int r = 0; r < P; ++r) {

@@ -37,8 +37,8 @@ Domain of the kernel (re-derived for the card; the TPU's lane and VMEM
 limits do not apply): ``nwins`` a power of two in 16..16384, any hop in
 1..nwins, any ``nt >= (navr-1)*hop + nwins``, any ``nch >= 0`` (up to
 65534), up to 1024 taps, ``detrend_style`` in {0, 1}, real float32 or
-complex64 (two-sided) signals.  Its shared memory is at most 140 KB a
-block (real, ``nwins`` 16384) and 205 KB (complex).
+complex64 (two-sided) signals.  Its shared memory is at most 209 KB a
+block (real, ``nwins`` 8192 with 1024 taps) and 205 KB (complex).
 
 Kernel B also stands for TPU kernel #8, the v2 factored kernel
 (``pallas_welch.py::_factored_kernel``), which the JAX package's
@@ -222,6 +222,14 @@ def _groups(navr: int, ncols: int, device) -> int:
     return max(1, min(navr, -(-4 * sms // ncols)))
 
 
+def _pair_groups(navr: int, nch: int, resident: int) -> int:
+    """Segment groups of ``csrc/welch_pair.cu``: at most one item (group x
+    channel) per block the card holds at once, at most one unit (FFT) a
+    group; a unit is a segment, or two at ``nch = 0``."""
+    nunits = navr if nch else -(-navr // 2)
+    return max(1, min(nunits, resident // max(nch, 1)))
+
+
 def _mirror(out: torch.Tensor, nwins: int, nfreq: int) -> torch.Tensor:
     """Bins ``nwins/2+1 .. nfreq-1`` of real signals' powers ``out (C, 3,
     nwins/2+1)`` from their mirror images: ``P[N-k] = P[k]`` and ``Im
@@ -291,20 +299,18 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
             xf, yf = torch.view_as_real(x), torch.view_as_real(y)
             rc = lib.pyfft_welch(
                 xf.data_ptr(), yf.data_ptr() if nch else xf.data_ptr(),
-                yf.stride(0) if nch else 0, 2, 1, t.data_ptr(), K,
+                yf.stride(0) if nch else 0, t.data_ptr(), K,
                 means.data_ptr(), w.data_ptr(), tw.data_ptr(),
                 part.data_ptr(), out.data_ptr(), nch, int(nwins), int(hop),
                 int(navr), ngroups, int(nfreq), float(norm), stream)
             _build.check(rc, "welch kernel")
         else:
-            # bins 0..nwins/2, the rest mirrored; about one item (segment
-            # group x channel) per block the card holds at once
+            # bins 0..nwins/2, the rest mirrored
             nbins = min(nfreq, nwins // 2 + 1)
             resident = lib.pyfft_welch_pair_resident(int(nwins), K)
             if resident < 0:
                 _build.check(-resident, "welch_pair kernel")
-            nunits = navr if nch else -(-navr // 2)
-            ngroups = max(1, min(nunits, resident // max(nch, 1)))
+            ngroups = _pair_groups(int(navr), nch, resident)
             part = torch.empty((ngroups, nch + 1, 3, nbins),
                                dtype=torch.float64, device=dev)
             out = torch.empty((nch + 1, 3, nbins), dtype=torch.float32,

@@ -4,8 +4,8 @@ emulated on the CPU.
 The kernel runs only on a card (tests/test_torch_cuda.py), so its
 arithmetic is held here as a float64 emulation of its plan:
 
-- items (segment group, channel) with the wrapper's group split, empty
-  groups included;
+- items (segment group, channel) with the wrapper's group split
+  (``welch._pair_groups``), empty groups included;
 - per channel one complex FFT of ``x_s + i y_{c,s}`` (``nch >= 1``), or of
   segments ``2p`` and ``2p + 1`` of x (``nch = 0``, the last segment of an
   odd count alone);
@@ -50,11 +50,6 @@ def _cpu_default():
     """The port runs on the CPU only when asked to: these tests ask."""
     with default_device("cpu"):
         yield
-
-
-def _groups(nunits, nch, resident):
-    """The wrapper's segment groups for ``resident`` blocks."""
-    return max(1, min(nunits, resident // max(nch, 1)))
 
 
 def _emulate(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend,
@@ -176,7 +171,7 @@ def test_welch_pair_plan_matches_plain(nch, nt, nwins, hop, ntaps, detrend,
     output's max."""
     x, y, taps, win = _inputs(nch, nt, nwins, ntaps, nt + nwins)
     navr = (nt - nwins) // hop + 1
-    ngroups = _groups(navr if nch else (navr + 1) // 2, nch, resident)
+    ngroups = pw._pair_groups(navr, nch, resident)
     kw = dict(navr=navr, nwins=nwins, hop=hop, taps=taps)
     got = _emulate(x, y, win, nfreq, 0.5, detrend=detrend, ngroups=ngroups,
                    **kw)
