@@ -15,16 +15,31 @@
 // Kernel G replaces pyfft_tpu/utils/profiling.py::fused_kernel: for every
 // 128-row group of a row block, `passes` chained products y <- bf16(T @ y)
 // with T (128, 128) bf16, float32 accumulation and the result rounded to
-// bf16 between passes (y starts as bf16(x)), then the column sums of the
-// groups' results, added over the groups and the row blocks.  In stream
-// mode row block b is read at step b; in resident mode every step reads
-// row block 0 (the TPU probe's compute-only case).  What bounds it: the
-// products, 2 * 128 * 128 * N flops per group and pass, done here on the
-// CUDA cores: a simple shared-memory tile loop (T, 32 KB, and a 128 x 64
-// bf16 tile of y, 16 KB), each of 256 threads holding an 8 x 4 block of
-// outputs in float32 registers.  wgmma/mma is later work.
+// bf16 (round to nearest even) after each pass (y starts as bf16(x)), then
+// the column sums of the groups' results, added over the groups and the
+// row blocks.  In stream mode row block b is read at step b; in resident
+// mode every step reads row block 0 (the TPU probe's compute-only case).
+// What bounds it: the products, 2 * 128 * 128 * N flops per group and pass
+// (2.3e11 at 65536 x 1152 and 12 passes), which only the tensor cores do
+// near the book rate; x is read once (302 MB), far below that.  Design:
+// persistent blocks, one an SM, walk (group, 128-column) tiles in a fixed
+// order.  Two warpgroups run wgmma m64n128k16 (bf16 in, float32 out), each
+// on 64 rows of T, which sits in shared memory for the block's life
+// (K-major, 128-byte swizzle, as stored).  y stays in shared memory across
+// the passes, in two ping-pong buffers in the MN-major 128-byte-swizzled
+// layout that the B descriptor reads with its transpose bit: a pass's
+// epilogue rounds its accumulators to bf16 and stores them, pairs of
+// columns as they lie in the accumulator fragment, straight into the other
+// buffer, then fences the generic-proxy stores for the tensor cores, so one
+// barrier a pass suffices.  While a tile runs its passes, cp.async stages
+// the next tile's 64 KB of float32 x (columns >= N zero-filled; they stay
+// zero through T @ y and are not written out).  Each tile's column sums go
+// to its own row of `part`; sum_partials (reduce.cuh) adds the rows in
+// order, so the result does not depend on which block took which tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "reduce.cuh"
 
@@ -32,9 +47,6 @@ namespace {
 
 constexpr int kColTile = 128;   // kernel F: columns per block
 constexpr int kRowLanes = 8;    // kernel F: warps per block
-constexpr int kG = 128;         // kernel G: rows of a group and of T
-constexpr int kW = 64;          // kernel G: columns per block
-constexpr int kThreadsG = 256;
 
 __global__ void __launch_bounds__(32 * kRowLanes)
 colsum_kernel(const float* __restrict__ x, float* __restrict__ part, int N,
@@ -72,82 +84,218 @@ colsum_kernel(const float* __restrict__ x, float* __restrict__ part, int N,
     }
 }
 
-__global__ void __launch_bounds__(kThreadsG)
+constexpr int kG = 128;          // kernel G: rows of a group, of T and of K
+constexpr int kW = 128;          // kernel G: columns of a tile (wgmma N)
+constexpr int kThreadsG = 256;   // two warpgroups, 64 rows of T each
+// kernel G's shared memory, in bytes from a 1024-byte-aligned base: T
+// (K-major, two 64-wide K halves of 128 rows x 128 B), the two y buffers
+// (MN-major, two 64-wide N halves of 128 K-rows x 128 B), the float32
+// staging of the next tile's x (128 x 128, rows of 512 B) and 128 floats
+// for the column sums
+constexpr int kHalf = 128 * 128;                // one 64-wide half, bytes
+constexpr int kOffT = 0;
+constexpr int kOffY = 2 * kHalf;   // y buffer b at + b * 2 * kHalf
+constexpr int kOffStage = kOffY + 4 * kHalf;
+constexpr int kOffRed = kOffStage + kG * kW * 4;
+constexpr int kSmemG = kOffRed + kW * 4 + 1024;   // + alignment slack
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The byte offset of element (row, col) of a 128-byte-swizzled operand
+// stored as two 64-wide halves of 128 rows x 128 bytes: 16-byte chunks
+// XOR the row mod 8 (the wgmma/TMA 128-byte swizzle).
+__device__ __forceinline__ int swz(int row, int col) {
+    return (col >> 6) * kHalf + row * 128 +
+           ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+           (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+           (1ull << 62);
+}
+
+// d (64 x 128, float32, in the wgmma accumulator fragment) (+)= A @ B with
+// A K-major, B MN-major (transpose bit), both bf16 from shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int bytes, int src_bytes) {
+    if (bytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// Start copying tile (rows row0 .. row0 + 127, columns c0 .. c0 + 127) of x
+// into the float32 staging; columns >= N are zero-filled.  vec: 16-byte
+// copies (N % 4 == 0 and x 16-byte aligned), else 4-byte ones.
+__device__ __forceinline__ void stage_tile(uint32_t stage, const float* x,
+                                           long long row0, int c0, int N,
+                                           bool vec) {
+    if (vec) {
+        for (int q = threadIdx.x; q < kG * kW / 4; q += kThreadsG) {
+            const int r = q >> 5, col = c0 + (q & 31) * 4;
+            const bool in = col < N;
+            cp_async(stage + q * 16, in ? x + (row0 + r) * N + col : x, 16,
+                     in ? 16 : 0);
+        }
+    } else {
+        for (int q = threadIdx.x; q < kG * kW; q += kThreadsG) {
+            const int r = q >> 7, col = c0 + (q & 127);
+            const bool in = col < N;
+            cp_async(stage + q * 4, in ? x + (row0 + r) * N + col : x, 4,
+                     in ? 4 : 0);
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreadsG, 1)
 chain_kernel(const float* __restrict__ x,
              const __nv_bfloat16* __restrict__ T, float* __restrict__ part,
-             int N, int rows_blk, int passes, int resident) {
-    __shared__ __align__(16) __nv_bfloat16 ts[kG * kG];
-    __shared__ __align__(16) __nv_bfloat16 ys[kG * kW];
+             int N, int rows_blk, int passes, int resident, int ntiles,
+             int vec) {
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = smem_addr(smem_raw);
+    unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+    const uint32_t base = smem_addr(smem);
+    const float* stage = reinterpret_cast<const float*>(smem + kOffStage);
+    float* red = reinterpret_cast<float*>(smem + kOffRed);
     const int tid = threadIdx.x;
-    const int c0 = blockIdx.x * kW;
-    const int g = blockIdx.y;
-    const int b = blockIdx.z;
-    const long long row0 =
-        static_cast<long long>(resident ? 0 : b) * rows_blk + g * kG;
-    for (int i = tid; i < kG * kG; i += kThreadsG) ts[i] = T[i];
-    for (int i = tid; i < kG * kW; i += kThreadsG) {
-        const int r = i / kW;
-        const int col = c0 + i % kW;
-        ys[i] = __float2bfloat16(
-            col < N ? __ldg(x + (row0 + r) * N + col) : 0.f);
-    }
-    __syncthreads();
+    const int ncol = (N + kW - 1) / kW;
+    const int groups = rows_blk / kG;
+    auto tile_row0 = [&](int tile) {
+        const int p = tile / ncol;   // its row of part: block, group
+        return static_cast<long long>(resident ? 0 : p / groups) * rows_blk +
+               static_cast<long long>(p % groups) * kG;
+    };
 
-    // thread (ty, tx) owns rows ty*8 .. ty*8+7 and columns tx*4 .. tx*4+3
-    const int ty = tid / 16;
-    const int tx = tid % 16;
-    float out[8][4];
+    int t = blockIdx.x;
+    stage_tile(base + kOffStage, x, tile_row0(t), (t % ncol) * kW, N, vec);
+    // T, once a block: 16-byte chunks into the K-major swizzled layout
+    for (int q = tid; q < kG * kG / 8; q += kThreadsG) {
+        const int r = q >> 4, k = (q & 15) * 8;
+        *reinterpret_cast<uint4*>(smem + kOffT + swz(r, k)) =
+            __ldg(reinterpret_cast<const uint4*>(T) + q);
+    }
+
+    // this thread's place in the accumulator fragment: rows r0, r0 + 8 of
+    // the tile, columns 8j + cq, 8j + cq + 1 for j = 0..15
+    const int wg = tid >> 7;
+    const int lane = tid & 31;
+    const int r0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+    const int cq = (lane & 3) * 2;
+    // A: this warpgroup's 64 rows of T; k step kk at + (kk / 4) half,
+    // + (kk % 4) * 32 bytes in the row (8-row groups 1024 bytes apart)
+    const uint32_t a_base = base + kOffT + wg * 64 * 128;
+    float d[64];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            out[i][j] = __bfloat162float(ys[(ty * 8 + i) * kW + tx * 4 + j]);
-    for (int p = 0; p < passes; ++p) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-        for (int k = 0; k < kG; ++k) {
-            float a[8], v[4];
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-                a[i] = __bfloat162float(ts[(ty * 8 + i) * kG + k]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                v[j] = __bfloat162float(ys[k * kW + tx * 4 + j]);
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    out[i][j] = fmaf(a[i], v[j], out[i][j]);
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+
+    for (; t < ntiles; t += gridDim.x) {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncthreads();   // staging landed; the last tile's reads are done
+        // x -> bf16 into y buffer 0
+        for (int q = tid; q < kG * kW / 4; q += kThreadsG) {
+            const int r = q >> 5, c = (q & 31) * 4;
+            const float4 v = reinterpret_cast<const float4*>(stage)[q];
+            const __nv_bfloat162 lo =
+                __float22bfloat162_rn(make_float2(v.x, v.y));
+            const __nv_bfloat162 hi =
+                __float22bfloat162_rn(make_float2(v.z, v.w));
+            uint2 w;
+            w.x = *reinterpret_cast<const uint32_t*>(&lo);
+            w.y = *reinterpret_cast<const uint32_t*>(&hi);
+            *reinterpret_cast<uint2*>(smem + kOffY + swz(r, c)) = w;
         }
-        __syncthreads();  // every thread has read ys
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const __nv_bfloat16 r = __float2bfloat16(out[i][j]);
-                ys[(ty * 8 + i) * kW + tx * 4 + j] = r;
-                out[i][j] = __bfloat162float(r);
-            }
-        __syncthreads();
-    }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();   // y visible to the tensor cores; staging free
+        const int tn = t + gridDim.x;
+        if (tn < ntiles)
+            stage_tile(base + kOffStage, x, tile_row0(tn), (tn % ncol) * kW,
+                       N, vec);
 
-    // column sums over the group's 128 rows, through ts (no longer read)
-    float* red = reinterpret_cast<float*>(ts);   // (16, kW)
+        for (int p = 0; p < passes; ++p) {
+            const int src = p & 1;
+            const uint32_t b_base = base + kOffY + src * 2 * kHalf;
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        float s = 0.f;
+            for (int kk = 0; kk < kG / 16; ++kk) {
+                const uint64_t a = gmma_desc(
+                    a_base + (kk >> 2) * kHalf + (kk & 3) * 32, 16, 1024);
+                // B: K rows kk*16.., 8-row groups 1024 B apart (SBO), the
+                // two 64-wide N halves kHalf apart (LBO)
+                const uint64_t b = gmma_desc(b_base + kk * 16 * 128, kHalf,
+                                             1024);
+                wgmma_m64n128k16(d, a, b, kk);
+            }
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+            unsigned char* dst = smem + kOffY + (src ^ 1) * 2 * kHalf;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) s += out[i][j];
-        red[ty * kW + tx * 4 + j] = s;
-    }
-    __syncthreads();
-    if (tid < kW && c0 + tid < N) {
+            for (int j = 0; j < 16; ++j) {
+                const int off = swz(r0, 8 * j + cq);
+                const __nv_bfloat162 u =
+                    __float22bfloat162_rn(make_float2(d[4 * j], d[4 * j + 1]));
+                const __nv_bfloat162 v = __float22bfloat162_rn(
+                    make_float2(d[4 * j + 2], d[4 * j + 3]));
+                *reinterpret_cast<__nv_bfloat162*>(dst + off) = u;
+                *reinterpret_cast<__nv_bfloat162*>(dst + off + 8 * 128) = v;
+            }
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            __syncthreads();
+        }
+
+        // column sums of the final bf16 y: rows 0..63 and 64..127 in order
+        const unsigned char* y = smem + kOffY + (passes & 1) * 2 * kHalf;
+        const int c = tid & 127, h = tid >> 7;
         float s = 0.f;
-        for (int r = 0; r < kG / 8; ++r) s += red[r * kW + tid];
-        part[(static_cast<long long>(b) * gridDim.y + g) * N + c0 + tid] = s;
+        for (int r = h * 64; r < h * 64 + 64; ++r)
+            s += __bfloat162float(
+                *reinterpret_cast<const __nv_bfloat16*>(y + swz(r, c)));
+        if (h) red[c] = s;
+        __syncthreads();
+        const int col = (t % ncol) * kW + c;
+        if (!h && col < N)
+            part[static_cast<long long>(t / ncol) * N + col] = s + red[c];
     }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 bool bad_shape(int nrows, int N, int rows_blk) {
@@ -176,24 +324,38 @@ extern "C" int pyfft_colsum(const float* x, float* part, float* out,
 }
 
 // Kernel G.  x: (nrows, N) float32, contiguous; T: (128, 128) bf16,
-// contiguous; rows_blk a multiple of 128 dividing nrows.  part:
-// (nrows / rows_blk * rows_blk / 128, N) float32 scratch.  out: (N,)
-// float32.  resident != 0 reads row block 0 at every step.  Returns
-// cudaGetLastError() after the last launch.
+// contiguous, 16-byte aligned; rows_blk a multiple of 128 dividing nrows.
+// part: (nrows / 128, N) float32 scratch.  out: (N,) float32.  resident
+// != 0 reads row block 0 at every step.  Returns cudaGetLastError() after
+// the last launch.
 extern "C" int pyfft_chain(const float* x, const void* T, float* part,
                            float* out, int nrows, int N, int rows_blk,
                            int passes, int resident, void* stream_ptr) {
-    if (bad_shape(nrows, N, rows_blk) || rows_blk % kG || passes < 0)
+    if (bad_shape(nrows, N, rows_blk) || rows_blk % kG || passes < 0 ||
+        reinterpret_cast<uintptr_t>(T) % 16)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const int nb = nrows / rows_blk;
-    const int groups = rows_blk / kG;
-    const dim3 grid(static_cast<unsigned>((N + kW - 1) / kW),
-                    static_cast<unsigned>(groups), static_cast<unsigned>(nb));
-    chain_kernel<<<grid, kThreadsG, 0, stream>>>(
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    static unsigned long long smem_set = 0;   // one bit a device
+    if (dev < 64 && !(smem_set >> dev & 1)) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            kSmemG);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        smem_set |= 1ull << dev;
+    }
+    const int nparts = nrows / kG;
+    const long long ntiles =
+        static_cast<long long>(nparts) * ((N + kW - 1) / kW);
+    if (ntiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+    const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
+    const int vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    chain_kernel<<<grid, kThreadsG, kSmemG, stream>>>(
         x, static_cast<const __nv_bfloat16*>(T), part, N, rows_blk, passes,
-        resident);
+        resident, static_cast<int>(ntiles), vec);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
-    return launch_sum_partials(part, out, nb * groups, N, 1.0, stream);
+    return launch_sum_partials(part, out, nparts, N, 1.0, stream);
 }

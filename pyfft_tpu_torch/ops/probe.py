@@ -18,15 +18,22 @@ Counterparts of ``mem_kernel`` and ``fused_kernel`` in
 On CUDA tensors the kernels launch; on CPU tensors :func:`colsum_plain`
 and :func:`chain_plain` run.  ``LAUNCHES`` counts each kernel's launches
 (``{"colsum": n, "chain": n}``).
+
+Kernel G adds its products on the tensor cores, in another order than the
+plain version's float32 loop, so with a dense ``T`` the two round a few
+elements of each pass to neighbouring bf16 values and the chain carries
+them on.  :func:`two_tap_T` gives a ``T`` whose chain every order computes
+bit for bit, so that a check can hold the kernel to its plain version.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 
 __all__ = ["colsum", "chain", "colsum_plain", "chain_plain", "colsum_cuda",
-           "chain_cuda", "GROUP", "LAUNCHES"]
+           "chain_cuda", "two_tap_T", "GROUP", "LAUNCHES"]
 
 GROUP = 128
 
@@ -69,6 +76,22 @@ def chain_plain(x, T, rows_blk, passes, resident=False):
         y = torch.matmul(Tf, y.to(torch.float32)).to(torch.bfloat16)
     out = y.to(torch.float32).sum(dim=(0, 1)).reshape(1, N)
     return out * nb if resident else out
+
+
+def two_tap_T(seed, device="cpu"):
+    """A ``(128, 128)`` bf16 ``T`` with two entries of 0.5 in each row, at
+    columns ``pi(i)`` and ``pi(i + 1)`` of a random permutation ``pi``.
+    Every output of a pass is the sum of two halved bf16 values, which
+    float32 holds exactly (unless they lie 2^15 apart, and then any order
+    rounds it to the larger one's neighbourhood alike), so the chain does
+    not depend on the order of the sums, while the bf16 rounding after each
+    pass still drops bits."""
+    pi = torch.as_tensor(np.random.default_rng(seed).permutation(GROUP))
+    T = torch.zeros((GROUP, GROUP), dtype=torch.float32)
+    rows = torch.arange(GROUP)
+    T[rows, pi] = 0.5
+    T[rows, torch.roll(pi, -1)] = 0.5
+    return T.to(device=device, dtype=torch.bfloat16)
 
 
 # --------------------------------------------------------------------------- #

@@ -450,16 +450,26 @@ def test_heatpulse_pallas_launches_kernel_e_once_on_card(cuda_device):
         assert np.abs(u - v).max() <= 1e-5 * np.abs(v).max(), f
 
 
+# kernel G against its plain version: 1e-4 of the largest sum on two-tap T,
+# whose chain every order of float32 sums computes bit for bit (a chain
+# without the bf16 re-rounding misses it by more than 5e-4 at these
+# inputs, tests/test_torch_chain_plan.py); on the probe's dense T the tensor
+# cores' order rounds about 4e-5 of a pass's elements to the neighbouring
+# bf16 value, which 12 passes carry to about 1e-3 (0.9e-3 to 2.7e-3 here)
+CHAIN_TOL = 1e-4
+CHAIN_ORDER_TOL = 5e-3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nrows,N,rows_blk", [(4096, 1152, 512),
                                               (1024, 100, 256),
-                                              (2048, 4, 1024)])
+                                              (2048, 4, 1024),
+                                              (1024, 200, 128),
+                                              (1024, 1000, 128)])
 def test_probe_kernels_match_plain_on_card(cuda_device, nrows, N, rows_blk):
     """Kernel F vs float32 column sums (1e-5 * max|ref|) and kernel G vs
-    its plain version (1e-4 * max|ref|; a chain without the bf16
-    re-rounding between passes misses it by more than 1e-3, as
-    ``tests/test_torch_profiling.py`` shows at these inputs), streamed and
-    resident."""
+    its plain version (``CHAIN_TOL`` on two-tap T, ``CHAIN_ORDER_TOL`` on a
+    dense T), streamed and resident, over ragged widths."""
     rng = np.random.default_rng(N)
     x = torch.as_tensor(rng.standard_normal((nrows, N)),
                         dtype=torch.float32, device=cuda_device)
@@ -476,13 +486,37 @@ def test_probe_kernels_match_plain_on_card(cuda_device, nrows, N, rows_blk):
     else:
         with pytest.raises(ValueError):
             pprobe.colsum(x, rows_blk)
-    for passes, resident in ((0, False), (12, False), (3, True)):
-        g0 = pprobe.LAUNCHES["chain"]
-        got = pprobe.chain(x, T, rows_blk, passes, resident)
-        torch.cuda.synchronize()
-        assert pprobe.LAUNCHES["chain"] == g0 + 1
-        ref = pprobe.chain_plain(x, T, rows_blk, passes, resident)
-        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+    T2 = pprobe.two_tap_T(N, cuda_device)
+    for passes, resident in ((0, False), (1, False), (12, False), (3, True)):
+        for Tc, tol in ((T2, CHAIN_TOL), (T, CHAIN_ORDER_TOL)):
+            g0 = pprobe.LAUNCHES["chain"]
+            got = pprobe.chain(x, Tc, rows_blk, passes, resident)
+            torch.cuda.synchronize()
+            assert pprobe.LAUNCHES["chain"] == g0 + 1
+            ref = pprobe.chain_plain(x, Tc, rows_blk, passes, resident)
+            assert got.shape == (1, N)
+            assert ((got - ref).abs().max()
+                    / ref.abs().max()).item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,rows_blk,passes", [(1152, 512, 12),
+                                               (200, 128, 1),
+                                               (1000, 256, 3)])
+def test_chain_resident_equals_streamed_over_one_block_on_card(
+        cuda_device, N, rows_blk, passes):
+    """Over a single row block the resident and streamed runs read the
+    same rows into the same tiles: kernel G's two results agree bit for
+    bit (on a dense T, where the order of sums would show)."""
+    rng = np.random.default_rng(N + passes)
+    x = torch.as_tensor(rng.standard_normal((rows_blk, N)),
+                        dtype=torch.float32, device=cuda_device)
+    T = torch.as_tensor(rng.standard_normal((128, 128)) / 16.0,
+                        device=cuda_device).to(torch.bfloat16)
+    streamed = pprobe.chain(x, T, rows_blk, passes, False)
+    resident = pprobe.chain(x, T, rows_blk, passes, True)
+    assert torch.equal(streamed, resident)
+    assert torch.isfinite(streamed).all()
 
 
 @pytest.mark.cuda

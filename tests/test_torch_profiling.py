@@ -10,9 +10,11 @@ against the JAX package on the CPU.
   passes (float32 against float64 accumulation, measured here), because a
   changed float32 sum can round to the neighbouring bf16 value.
 - Kernel F's plain version: float32 column sums, 1e-5 * max|ref|.
-- The card holds kernel G to its plain version at 1e-4 * max|ref|
-  (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here, at the card
-  test's inputs, a chain that leaves out the bf16 re-rounding between
+- The card holds kernel G to its plain version at 1e-4 * max|ref| on
+  ``probe.two_tap_T``, whose chain no order of sums can move
+  (``tests/test_torch_cuda.py``, ``chip_smoke.py``,
+  ``tests/test_torch_chain_plan.py``); here, at the card test's inputs
+  with the dense T, a chain that leaves out the bf16 re-rounding between
   passes misses the plain version by more than ten times that.
 - ``fft_pwelch`` and ``HeatPulseFFT.run`` mark their stages as ranges in
   a ``torch.profiler`` trace.
