@@ -22,20 +22,21 @@
 // What bounds it: the products, 2 * 128 * 128 * N flops per group and pass
 // (2.3e11 at 65536 x 1152 and 12 passes), which only the tensor cores do
 // near the book rate; x is read once (302 MB), far below that.  Design:
-// persistent blocks, one an SM, walk (group, 128-column) tiles in a fixed
-// order.  Two warpgroups run wgmma m64n128k16 (bf16 in, float32 out), each
-// on 64 rows of T, which sits in shared memory for the block's life
-// (K-major, 128-byte swizzle, as stored).  y stays in shared memory across
-// the passes, in two ping-pong buffers in the MN-major 128-byte-swizzled
-// layout that the B descriptor reads with its transpose bit: a pass's
-// epilogue rounds its accumulators to bf16 and stores them, pairs of
-// columns as they lie in the accumulator fragment, straight into the other
-// buffer, then fences the generic-proxy stores for the tensor cores, so one
-// barrier a pass suffices.  While a tile runs its passes, cp.async stages
-// the next tile's 64 KB of float32 x (columns >= N zero-filled; they stay
-// zero through T @ y and are not written out).  Each tile's column sums go
-// to its own row of `part`; sum_partials (reduce.cuh) adds the rows in
-// order, so the result does not depend on which block took which tile.
+// the chain runs transposed, y^T <- bf16(y^T T^T), on wgmma m64n128k16
+// (bf16 in, float32 out) with y^T as the A operand in registers and T, as
+// stored (K-major, 128-byte swizzle), as the B operand in shared memory,
+// loaded once a block.  The accumulator fragment of one pass, rounded in
+// pairs, is the next pass's A fragment as it lies, so y never leaves the
+// registers between passes: no stores, no proxy fence, no barrier a pass,
+// and each warpgroup runs its own chain while the others' products keep
+// the tensor cores busy.  A warpgroup takes units of 128 rows (one group)
+// x 64 columns in a fixed walk; while a unit runs its passes, cp.async
+// stages the warpgroup's next unit of float32 x (32 KB; columns >= N are
+// zero-filled, stay zero through the products and are not written out).
+// Two blocks an SM.  Each unit's column sums (a quad of lanes holds a
+// column) go to its own row of `part`; sum_partials (reduce.cuh) adds the
+// rows in order, so the result does not depend on which block took which
+// unit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -85,30 +86,32 @@ colsum_kernel(const float* __restrict__ x, float* __restrict__ part, int N,
 }
 
 constexpr int kG = 128;          // kernel G: rows of a group, of T and of K
-constexpr int kW = 128;          // kernel G: columns of a tile (wgmma N)
-constexpr int kThreadsG = 256;   // two warpgroups, 64 rows of T each
+constexpr int kU = 64;           // kernel G: columns a warpgroup takes (M)
+constexpr int kThreadsG = 256;   // two warpgroups, each on its own columns
 // kernel G's shared memory, in bytes from a 1024-byte-aligned base: T
-// (K-major, two 64-wide K halves of 128 rows x 128 B), the two y buffers
-// (MN-major, two 64-wide N halves of 128 K-rows x 128 B), the float32
-// staging of the next tile's x (128 x 128, rows of 512 B) and 128 floats
-// for the column sums
-constexpr int kHalf = 128 * 128;                // one 64-wide half, bytes
-constexpr int kOffT = 0;
-constexpr int kOffY = 2 * kHalf;   // y buffer b at + b * 2 * kHalf
-constexpr int kOffStage = kOffY + 4 * kHalf;
-constexpr int kOffRed = kOffStage + kG * kW * 4;
-constexpr int kSmemG = kOffRed + kW * 4 + 1024;   // + alignment slack
+// (two 64-wide K halves of 128 rows x 128 B, 128-byte swizzled) and each
+// warpgroup's float32 staging of its next unit of x (128 x 64)
+constexpr int kHalf = 128 * 128;
+constexpr int kOffStage = 2 * kHalf;
+constexpr int kStage = kG * kU * 4;
+constexpr int kSmemG = kOffStage + 2 * kStage + 1024;   // + alignment slack
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The byte offset of element (row, col) of a 128-byte-swizzled operand
-// stored as two 64-wide halves of 128 rows x 128 bytes: 16-byte chunks
-// XOR the row mod 8 (the wgmma/TMA 128-byte swizzle).
-__device__ __forceinline__ int swz(int row, int col) {
-    return (col >> 6) * kHalf + row * 128 +
-           ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+// Byte offset of T[row][k] in its K-major 128-byte-swizzled layout: two
+// 64-wide K halves of 128 rows x 128 bytes, 16-byte chunks XOR row mod 8.
+__device__ __forceinline__ int t_offset(int row, int k) {
+    return (k >> 6) * kHalf + row * 128 +
+           ((((k & 63) >> 3) ^ (row & 7)) << 4) + (k & 7) * 2;
+}
+
+// Float index of x[k][m] in a warpgroup's staging (128 rows of 64): the
+// 8-column groups XOR 2 * ((k / 2) mod 4), so that the fragment reads
+// below (rows 2q + 0/1 for the four q of a quad) hit distinct banks.
+__device__ __forceinline__ int stage_index(int k, int m) {
+    return k * kU + (m ^ (((k >> 1) & 3) << 3));
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle (layout type 1)
@@ -120,12 +123,15 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
            (1ull << 62);
 }
 
-// d (64 x 128, float32, in the wgmma accumulator fragment) (+)= A @ B with
-// A K-major, B MN-major (transpose bit), both bf16 from shared memory.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
-                                                 uint64_t b, int accumulate) {
+// d (64 x 128, float32, accumulator fragment) (+)= A @ B: A (64 x 16)
+// bf16 from registers (a0..a3, the mma.m16n8k16 A fragment of each warp's
+// 16 rows), B (16 x 128) bf16 K-major from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b,
+                                         int accumulate) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -135,7 +141,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -149,7 +155,20 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+    return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+    return __uint_as_float(v & 0xFFFF0000u);
 }
 
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
@@ -162,138 +181,139 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
                      :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
-// Start copying tile (rows row0 .. row0 + 127, columns c0 .. c0 + 127) of x
-// into the float32 staging; columns >= N are zero-filled.  vec: 16-byte
-// copies (N % 4 == 0 and x 16-byte aligned), else 4-byte ones.
-__device__ __forceinline__ void stage_tile(uint32_t stage, const float* x,
+// The 128 threads of a warpgroup (thread wt) start copying the unit's x
+// (rows row0.., columns c0.. c0 + 63) into their staging; columns >= N are
+// zero-filled.  vec: 16-byte copies (N % 4 == 0 and x 16-byte aligned).
+__device__ __forceinline__ void stage_unit(uint32_t stage, const float* x,
                                            long long row0, int c0, int N,
-                                           bool vec) {
+                                           bool vec, int wt) {
     if (vec) {
-        for (int q = threadIdx.x; q < kG * kW / 4; q += kThreadsG) {
-            const int r = q >> 5, col = c0 + (q & 31) * 4;
+        for (int q = wt; q < kG * kU / 4; q += 128) {
+            const int k = q >> 4, m = (q & 15) * 4, col = c0 + m;
             const bool in = col < N;
-            cp_async(stage + q * 16, in ? x + (row0 + r) * N + col : x, 16,
-                     in ? 16 : 0);
+            cp_async(stage + stage_index(k, m) * 4,
+                     in ? x + (row0 + k) * N + col : x, 16, in ? 16 : 0);
         }
     } else {
-        for (int q = threadIdx.x; q < kG * kW; q += kThreadsG) {
-            const int r = q >> 7, col = c0 + (q & 127);
+        for (int q = wt; q < kG * kU; q += 128) {
+            const int k = q >> 6, m = q & 63, col = c0 + m;
             const bool in = col < N;
-            cp_async(stage + q * 4, in ? x + (row0 + r) * N + col : x, 4,
-                     in ? 4 : 0);
+            cp_async(stage + stage_index(k, m) * 4,
+                     in ? x + (row0 + k) * N + col : x, 4, in ? 4 : 0);
         }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kThreadsG, 1)
+__device__ __forceinline__ void wg_barrier(int wg) {
+    asm volatile("bar.sync %0, 128;\n" :: "r"(wg + 1) : "memory");
+}
+
+// Kernel G.  A unit is 128 rows (one group) x 64 columns; the chain runs
+// transposed, y^T <- bf16(y^T T^T): y^T (64 x 128) is the A operand, held
+// in registers, T^T the B operand, T as stored (K-major).  The float32
+// accumulator fragment of one pass, rounded in pairs, is the next pass's A
+// fragment as it lies, so y never leaves the registers between passes.
+__global__ void __launch_bounds__(kThreadsG, 2)
 chain_kernel(const float* __restrict__ x,
              const __nv_bfloat16* __restrict__ T, float* __restrict__ part,
-             int N, int rows_blk, int passes, int resident, int ntiles,
+             int N, int rows_blk, int passes, int resident, int nunits,
              int vec) {
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = smem_addr(smem_raw);
     unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
     const uint32_t base = smem_addr(smem);
-    const float* stage = reinterpret_cast<const float*>(smem + kOffStage);
-    float* red = reinterpret_cast<float*>(smem + kOffRed);
     const int tid = threadIdx.x;
-    const int ncol = (N + kW - 1) / kW;
+    const int wg = tid >> 7, wt = tid & 127, lane = tid & 31;
+    const int ncol = (N + kU - 1) / kU;
     const int groups = rows_blk / kG;
-    auto tile_row0 = [&](int tile) {
-        const int p = tile / ncol;   // its row of part: block, group
+    const uint32_t stage = base + kOffStage + wg * kStage;
+    const float* stg =
+        reinterpret_cast<const float*>(smem + kOffStage + wg * kStage);
+    auto unit_row0 = [&](int unit) {
+        const int p = unit / ncol;   // its row of part: block, group
         return static_cast<long long>(resident ? 0 : p / groups) * rows_blk +
                static_cast<long long>(p % groups) * kG;
     };
-
-    int t = blockIdx.x;
-    stage_tile(base + kOffStage, x, tile_row0(t), (t % ncol) * kW, N, vec);
+    const int stride = 2 * gridDim.x;
+    int u = 2 * blockIdx.x + wg;
+    if (u < nunits)
+        stage_unit(stage, x, unit_row0(u), (u % ncol) * kU, N, vec, wt);
     // T, once a block: 16-byte chunks into the K-major swizzled layout
     for (int q = tid; q < kG * kG / 8; q += kThreadsG) {
         const int r = q >> 4, k = (q & 15) * 8;
-        *reinterpret_cast<uint4*>(smem + kOffT + swz(r, k)) =
+        *reinterpret_cast<uint4*>(smem + t_offset(r, k)) =
             __ldg(reinterpret_cast<const uint4*>(T) + q);
     }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
 
-    // this thread's place in the accumulator fragment: rows r0, r0 + 8 of
-    // the tile, columns 8j + cq, 8j + cq + 1 for j = 0..15
-    const int wg = tid >> 7;
-    const int lane = tid & 31;
-    const int r0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
-    const int cq = (lane & 3) * 2;
-    // A: this warpgroup's 64 rows of T; k step kk at + (kk / 4) half,
-    // + (kk % 4) * 32 bytes in the row (8-row groups 1024 bytes apart)
-    const uint32_t a_base = base + kOffT + wg * 64 * 128;
+    // this thread's fragment: columns m0, m0 + 8 of the unit; A register
+    // 4kb + r holds rows k, k + 1 with k = 16kb + 2q + 8(r / 2), column
+    // m0 + 8(r % 2); accumulator entries 2i, 2i + 1 are A register i of
+    // the next pass
+    const int q4 = lane & 3;
+    const int m0 = ((wt >> 5) << 4) + (lane >> 2);
     float d[64];
+    uint32_t a[32];
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[i] = 0.f;
 
-    for (; t < ntiles; t += gridDim.x) {
+    for (; u < nunits; u += stride) {
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-        __syncthreads();   // staging landed; the last tile's reads are done
-        // x -> bf16 into y buffer 0
-        for (int q = tid; q < kG * kW / 4; q += kThreadsG) {
-            const int r = q >> 5, c = (q & 31) * 4;
-            const float4 v = reinterpret_cast<const float4*>(stage)[q];
-            const __nv_bfloat162 lo =
-                __float22bfloat162_rn(make_float2(v.x, v.y));
-            const __nv_bfloat162 hi =
-                __float22bfloat162_rn(make_float2(v.z, v.w));
-            uint2 w;
-            w.x = *reinterpret_cast<const uint32_t*>(&lo);
-            w.y = *reinterpret_cast<const uint32_t*>(&hi);
-            *reinterpret_cast<uint2*>(smem + kOffY + swz(r, c)) = w;
+        wg_barrier(wg);   // the unit's x has landed in the staging
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            const int k = 16 * (i >> 2) + 2 * q4 + 8 * ((i & 3) >> 1);
+            const int m = m0 + 8 * (i & 1);
+            a[i] = pack_bf16(stg[stage_index(k, m)],
+                             stg[stage_index(k + 1, m)]);
         }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncthreads();   // y visible to the tensor cores; staging free
-        const int tn = t + gridDim.x;
-        if (tn < ntiles)
-            stage_tile(base + kOffStage, x, tile_row0(tn), (tn % ncol) * kW,
-                       N, vec);
+        wg_barrier(wg);   // every thread has read the staging
+        const int un = u + stride;
+        if (un < nunits)
+            stage_unit(stage, x, unit_row0(un), (un % ncol) * kU, N, vec, wt);
 
         for (int p = 0; p < passes; ++p) {
-            const int src = p & 1;
-            const uint32_t b_base = base + kOffY + src * 2 * kHalf;
             asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-            for (int kk = 0; kk < kG / 16; ++kk) {
-                const uint64_t a = gmma_desc(
-                    a_base + (kk >> 2) * kHalf + (kk & 3) * 32, 16, 1024);
-                // B: K rows kk*16.., 8-row groups 1024 B apart (SBO), the
-                // two 64-wide N halves kHalf apart (LBO)
-                const uint64_t b = gmma_desc(b_base + kk * 16 * 128, kHalf,
-                                             1024);
-                wgmma_m64n128k16(d, a, b, kk);
-            }
+            for (int kk = 0; kk < kG / 16; ++kk)
+                wgmma_rs(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                         a[4 * kk + 3],
+                         gmma_desc(base + (kk >> 2) * kHalf + (kk & 3) * 32,
+                                   16, 1024),
+                         kk);
             asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
             asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-            unsigned char* dst = smem + kOffY + (src ^ 1) * 2 * kHalf;
+            // keep a live and d unread until the products are done
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
-                const int off = swz(r0, 8 * j + cq);
-                const __nv_bfloat162 u =
-                    __float22bfloat162_rn(make_float2(d[4 * j], d[4 * j + 1]));
-                const __nv_bfloat162 v = __float22bfloat162_rn(
-                    make_float2(d[4 * j + 2], d[4 * j + 3]));
-                *reinterpret_cast<__nv_bfloat162*>(dst + off) = u;
-                *reinterpret_cast<__nv_bfloat162*>(dst + off + 8 * 128) = v;
-            }
-            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-            __syncthreads();
+            for (int i = 0; i < 32; ++i)
+                asm volatile("" : "+r"(a[i]) :: "memory");
+#pragma unroll
+            for (int i = 0; i < 64; ++i)
+                asm volatile("" : "+f"(d[i]) :: "memory");
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+                a[i] = pack_bf16(d[2 * i], d[2 * i + 1]);
         }
 
-        // column sums of the final bf16 y: rows 0..63 and 64..127 in order
-        const unsigned char* y = smem + kOffY + (passes & 1) * 2 * kHalf;
-        const int c = tid & 127, h = tid >> 7;
-        float s = 0.f;
-        for (int r = h * 64; r < h * 64 + 64; ++r)
-            s += __bfloat162float(
-                *reinterpret_cast<const __nv_bfloat16*>(y + swz(r, c)));
-        if (h) red[c] = s;
-        __syncthreads();
-        const int col = (t % ncol) * kW + c;
-        if (!h && col < N)
-            part[static_cast<long long>(t / ncol) * N + col] = s + red[c];
+        // column sums of the final bf16 y: each thread its 32 rows of
+        // columns m0 and m0 + 8 in register order, then the quad's four
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+            float& s = (i & 1) ? s1 : s0;
+            s += bf16_lo(a[i]);
+            s += bf16_hi(a[i]);
+        }
+        s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+        s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+        const int col = (u % ncol) * kU + m0;
+        float* out = part + static_cast<long long>(u / ncol) * N;
+        if (q4 == 0 && col < N) out[col] = s0;
+        if (q4 == 0 && col + 8 < N) out[col + 8] = s1;
     }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
@@ -335,26 +355,37 @@ extern "C" int pyfft_chain(const float* x, const void* T, float* part,
         reinterpret_cast<uintptr_t>(T) % 16)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    int dev = 0, sms = 0;
+    int dev = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    static unsigned long long smem_set = 0;   // one bit a device
-    if (dev < 64 && !(smem_set >> dev & 1)) {
-        const cudaError_t e = cudaFuncSetAttribute(
+    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+    // per device, on its first launch: the shared-memory opt-in and how
+    // many blocks its SMs hold
+    static int blocks_on[64];
+    if (!blocks_on[dev]) {
+        cudaError_t e = cudaFuncSetAttribute(
             chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             kSmemG);
+        int sms = 0, per_sm = 0;
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, chain_kernel, kThreadsG, kSmemG);
         if (e != cudaSuccess) return static_cast<int>(e);
-        smem_set |= 1ull << dev;
+        blocks_on[dev] = sms * (per_sm > 0 ? per_sm : 1);
     }
     const int nparts = nrows / kG;
-    const long long ntiles =
-        static_cast<long long>(nparts) * ((N + kW - 1) / kW);
-    if (ntiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
-    const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
+    const long long nunits =
+        static_cast<long long>(nparts) * ((N + kU - 1) / kU);
+    if (nunits > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+    const long long blocks = (nunits + 1) / 2;   // two warpgroups a block
+    const int grid = static_cast<int>(
+        blocks < blocks_on[dev] ? blocks : blocks_on[dev]);
     const int vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     chain_kernel<<<grid, kThreadsG, kSmemG, stream>>>(
         x, static_cast<const __nv_bfloat16*>(T), part, N, rows_blk, passes,
-        resident, static_cast<int>(ntiles), vec);
+        resident, static_cast<int>(nunits), vec);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
     return launch_sum_partials(part, out, nparts, N, 1.0, stream);

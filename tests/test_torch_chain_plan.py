@@ -1,16 +1,18 @@
-"""Kernel G's tile plan (``pyfft_tpu_torch/csrc/probe.cu``) in float32 on
+"""Kernel G's unit plan (``pyfft_tpu_torch/csrc/probe.cu``) in float32 on
 the CPU against ``ops.probe.chain_plain`` and the JAX probe's math.
 
 The CUDA kernel runs only on the card; this emulation follows its plan:
-persistent blocks walk the (group, 128-column) tiles ``t = block, block +
-grid, ...`` with the tile's row of ``part`` ``t // ncol`` (row block ``b``,
-group ``g``) and column tile ``t % ncol``; columns past ``N`` are
-zero-filled and stay zero; each tile's column sums are rows 0..63 and
-64..127 of the last pass, each in order, then added; ``sum_partials`` adds
-the rows of ``part`` in order in float64.  With ``probe.two_tap_T`` every
-order of the float32 sums gives the same chain, so the plan must agree with
-the plain version to the order of the final column sums (1e-6 of the
-largest).
+each of a block's two warpgroups walks the (group, 64-column) units ``u =
+2 block + wg, u + 2 grid, ...``, the unit's row of ``part`` ``u // ncol``
+(row block ``b``, group ``g``) and its column slice ``u % ncol``; columns
+past ``N`` are zero-filled and stay zero; a column's sum over the unit's
+128 rows of the last pass is taken by the four lanes of a quad, lane ``q``
+adding rows ``16 kb + 2q, 16 kb + 2q + 1, 16 kb + 2q + 8, 16 kb + 2q + 9``
+for ``kb = 0..7`` in order, then ``(s0 + s1) + (s2 + s3)``;
+``sum_partials`` adds the rows of ``part`` in order in float64.  With
+``probe.two_tap_T`` every order of the float32 sums gives the same chain,
+so the plan must agree with the plain version to the order of the final
+column sums (1e-6 of the largest).
 """
 import numpy as np
 import pytest
@@ -23,38 +25,49 @@ from pyfft_tpu_torch.ops import probe
 CHAIN_TOL = 1e-4   # kernel G against chain_plain on order-free inputs
 
 
+def _quad_rows():
+    """The rows each lane q of a quad adds, in its order."""
+    return [[16 * kb + 2 * q + e for kb in range(8) for e in (0, 1, 8, 9)]
+            for q in range(4)]
+
+
 def _emulate(x, T, rows_blk, passes, resident, grid):
     """Kernel G's plan in float32: the result (1, N) and how many times each
-    tile was taken."""
+    unit was taken.  The units' arithmetic is batched in the walk's order
+    (no unit's result depends on another's)."""
     nrows, N = x.shape
-    ncol = -(-N // 128)
+    ncol = -(-N // 64)
     groups = rows_blk // 128
     nparts = nrows // 128
-    ntiles = nparts * ncol
-    taken = np.zeros(ntiles, dtype=int)
+    nunits = nparts * ncol
+    walk = [u for block in range(grid) for wg in range(2)
+            for u in range(2 * block + wg, nunits, 2 * grid)]
+    taken = np.bincount(walk, minlength=nunits)
+    xpad = torch.zeros(nrows, ncol * 64)
+    xpad[:, :N] = x                              # the zero fill
+    units = []
+    for u in walk:
+        p, cu = divmod(u, ncol)
+        row0 = (0 if resident else p // groups) * rows_blk \
+            + (p % groups) * 128
+        units.append(xpad[row0:row0 + 128, cu * 64:(cu + 1) * 64])
+    y = torch.stack(units).to(torch.bfloat16)
+    for _ in range(passes):
+        y = torch.matmul(T.float(), y.float()).to(torch.bfloat16)
+    yf = y.float()
+    s = []
+    for rows in _quad_rows():
+        acc = torch.zeros(len(walk), 64)
+        for r in rows:
+            acc = acc + yf[:, r]
+        s.append(acc)
+    sums = (s[0] + s[1]) + (s[2] + s[3])
     part = torch.full((nparts, N), float("nan"))
-    Tf = T.float()
-    for block in range(grid):
-        for t in range(block, ntiles, grid):
-            taken[t] += 1
-            p, ct = divmod(t, ncol)
-            row0 = (0 if resident else p // groups) * rows_blk \
-                + (p % groups) * 128
-            c0 = ct * 128
-            w = min(128, N - c0)
-            tile = torch.zeros(128, 128)
-            tile[:, :w] = x[row0:row0 + 128, c0:c0 + w]
-            y = tile.to(torch.bfloat16)
-            for _ in range(passes):
-                y = torch.matmul(Tf, y.float()).to(torch.bfloat16)
-            yf = y.float()
-            assert not yf[:, w:].any()           # the zero fill stays zero
-            s0 = torch.zeros(128)
-            s1 = torch.zeros(128)
-            for r in range(64):
-                s0 = s0 + yf[r]
-                s1 = s1 + yf[64 + r]
-            part[p, c0:c0 + w] = (s0 + s1)[:w]
+    for i, u in enumerate(walk):
+        p, cu = divmod(u, ncol)
+        w = min(64, N - cu * 64)
+        assert not yf[i, :, w:].any()            # and stays zero
+        part[p, cu * 64:cu * 64 + w] = sums[i, :w]
     out = torch.zeros(N, dtype=torch.float64)
     for p in range(nparts):
         out = out + part[p].double()
@@ -86,7 +99,7 @@ def _jax_chain(x, T, rows_blk, passes, resident):
 @pytest.mark.parametrize("nrows,N,rows_blk", [(512, 200, 128),
                                               (512, 1000, 256),
                                               (256, 100, 256), (384, 4, 128)])
-def test_tile_plan_matches_chain_plain(nrows, N, rows_blk, passes, resident,
+def test_unit_plan_matches_chain_plain(nrows, N, rows_blk, passes, resident,
                                        grid):
     rng = np.random.default_rng(N)
     x = torch.as_tensor(rng.standard_normal((nrows, N)), dtype=torch.float32)
@@ -128,6 +141,11 @@ def test_two_tap_chain_is_order_free_and_needs_rerounding(nrows, N,
         err = ((ctl.sum(dim=(0, 1)) - ref[0]).abs().max()
                / ref.abs().max()).item()
         assert err > margin * CHAIN_TOL
+
+
+def test_quads_cover_the_rows_once():
+    rows = sorted(r for q in _quad_rows() for r in q)
+    assert rows == list(range(128))
 
 
 def test_two_tap_T_has_two_halves_a_row_and_a_column():
