@@ -220,7 +220,8 @@ def time_ms(fn, reps=5):
 def trace_call(fn, kernel):
     """One call of ``fn`` under ``torch.profiler``: its wall (ms, host clock
     to a synchronize), the device's busy time and idle share, the device
-    time of the kernels whose names hold ``kernel``, the count of pageable
+    time and the recorded launches of the kernels whose names hold
+    ``kernel``, the count of pageable
     host -> device copies, and the top device and host entries (host: the
     operators' own CPU time)."""
     import torch
@@ -233,7 +234,7 @@ def trace_call(fn, kernel):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev_ms, host_ms, pageable = {}, {}, 0
+    dev_ms, host_ms, pageable, launches = {}, {}, 0, 0
     for e in tr.key_averages():
         if getattr(e, "is_user_annotation", False):
             continue
@@ -241,6 +242,8 @@ def trace_call(fn, kernel):
             host_ms[e.key] = e.self_cpu_time_total / 1e3
             continue
         dev_ms[e.key] = e.self_device_time_total / 1e3
+        if kernel in e.key:
+            launches += e.count
         if "HtoD" in e.key and "Pageable" in e.key:
             pageable += e.count
     busy = sum(dev_ms.values())
@@ -250,7 +253,8 @@ def trace_call(fn, kernel):
     return dict(wall_ms=wall, device_busy_ms=busy,
                 device_idle_share=1 - busy / wall,
                 kernel_ms=sum(v for k, v in dev_ms.items() if kernel in k),
-                h2d_pageable=pageable, host_ms=sum(host_ms.values()),
+                kernel_launches=launches, h2d_pageable=pageable,
+                host_ms=sum(host_ms.values()),
                 top_device_ms=top(dev_ms), top_host_ms=top(host_ms))
 
 
@@ -1201,11 +1205,14 @@ def main():
     cub_err, _ = rel_err(cublas_chain(xp, Tp, passes),
                          probe.chain_plain(xp, Tp, rows_blk, passes))
     cub_ms = time_ms(lambda: cublas_chain(xp, Tp, passes), 25)
-    # the profiler showed no device activity on an H100 in a window that
-    # held only the ctypes launches: a torch reduction of the result joins
-    # the traced call
-    tr13 = trace_call(lambda: probe.chain_cuda(xp, Tp, rows_blk,
-                                               passes).sum(), "chain_kernel")
+    # the profiler recorded no launch of a window that held one call alone
+    # on an H100: a torch operation opens the window, five calls follow,
+    # and the kernel's device time is taken per launch it recorded
+    def five_calls():
+        torch.zeros(1, device=dev).add_(1.0)
+        for _ in range(5):
+            probe.chain_cuda(xp, Tp, rows_blk, passes)
+    tr13 = trace_call(five_calls, "chain_kernel")
     peak_bf16 = profiling.peak_tflops("bf16", smi)
     emit("probe_vs_plain", kernel="chain", nrows=nrows, N=ncols,
          rows_blk=rows_blk, passes=passes, rel_err=cases["dense"]["rel_err"],
@@ -1215,7 +1222,10 @@ def main():
          cublas_chain_ms=cub_ms, cublas_chain_calls=passes,
          cublas_chain_rel_err=cub_err,
          tflops=fl13 / ms / 1e9, bf16_book_share=fl13 / ms / 1e9 / peak_bf16,
-         kernel_device_ms=tr13["kernel_ms"], ptxas=ptxas_report("chain"),
+         kernel_device_ms=tr13["kernel_ms"] / max(tr13["kernel_launches"],
+                                                  1),
+         traced_launches=tr13["kernel_launches"],
+         ptxas=ptxas_report("chain"),
          device_idle_share=tr13["device_idle_share"],
          top_device_ms=tr13["top_device_ms"], library_ms=None, **b13)
     check(tr13["kernel_ms"] > 0, "the profiler saw no kernel G time")

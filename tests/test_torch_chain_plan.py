@@ -98,7 +98,8 @@ def _jax_chain(x, T, rows_blk, passes, resident):
                                              (12, False), (3, True)])
 @pytest.mark.parametrize("nrows,N,rows_blk", [(512, 200, 128),
                                               (512, 1000, 256),
-                                              (256, 100, 256), (384, 4, 128)])
+                                              (256, 100, 256), (384, 4, 128),
+                                              (256, 97, 128)])
 def test_unit_plan_matches_chain_plain(nrows, N, rows_blk, passes, resident,
                                        grid):
     rng = np.random.default_rng(N)

@@ -465,11 +465,13 @@ CHAIN_ORDER_TOL = 5e-3
                                               (1024, 100, 256),
                                               (2048, 4, 1024),
                                               (1024, 200, 128),
-                                              (1024, 1000, 128)])
+                                              (1024, 1000, 128),
+                                              (512, 97, 256)])
 def test_probe_kernels_match_plain_on_card(cuda_device, nrows, N, rows_blk):
     """Kernel F vs float32 column sums (1e-5 * max|ref|) and kernel G vs
     its plain version (``CHAIN_TOL`` on two-tap T, ``CHAIN_ORDER_TOL`` on a
-    dense T), streamed and resident, over ragged widths."""
+    dense T), streamed and resident, over ragged widths (N = 97: G stages
+    x with 4-byte copies)."""
     rng = np.random.default_rng(N)
     x = torch.as_tensor(rng.standard_normal((nrows, N)),
                         dtype=torch.float32, device=cuda_device)
