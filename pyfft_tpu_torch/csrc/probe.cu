@@ -108,7 +108,7 @@ __device__ __forceinline__ int t_offset(int row, int k) {
 }
 
 // Float index of x[k][m] in a warpgroup's staging (128 rows of 64): the
-// 8-column groups XOR 2 * ((k / 2) mod 4), so that the fragment reads
+// index of m's 8-column group XOR (k / 2) mod 4, so that the fragment reads
 // below (rows 2q + 0/1 for the four q of a quad) hit distinct banks.
 __device__ __forceinline__ int stage_index(int k, int m) {
     return k * kU + (m ^ (((k >> 1) & 3) << 3));
