@@ -4,7 +4,11 @@
 
 Builds the port's CUDA kernels from ``pyfft_tpu_torch/csrc`` with ``nvcc``,
 holds each against its plain PyTorch version at the shapes of the main
-paths, then drives the main paths:
+paths, then drives the main paths.  Kernel A (the causal FIR) is held
+against its plain version first, on 9 signals of 2**25 samples at 129 and
+1024 taps and on 9 of 2**24 at 129 (phase 2: timed 25 times beside
+``conv1d``, traced once, with ptxas' registers and spills); it runs on its
+own main path inside phase 4.  The paths:
 
 - the fused FIR -> Welch cross-spectral chain at the size of bench
   configurations 0 and 5: 8 channels of 2**25 float32 samples at fs = 1 MHz
@@ -54,7 +58,9 @@ paths, then drives the main paths:
   through ``welch_filtered_cross_spectra``; nwins 16384, 50% overlap);
 - the FIR-transpose feeder ``ops.fir_transpose_pallas`` (kernel I) on the
   config-0 signals into the interleaved layout with a zero tail (phase
-  17).
+  17), after kernel I against its plain version (timed 25 times, traced
+  once) and against kernel A: without ``sub`` and de-interleaved, its
+  output must be kernel A's bit for bit.
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
@@ -256,6 +262,23 @@ def trace_call(fn, kernel):
                 kernel_launches=launches, h2d_pageable=pageable,
                 host_ms=sum(host_ms.values()),
                 top_device_ms=top(dev_ms), top_host_ms=top(host_ms))
+
+
+def trace_launches(fn, kernel, calls=5):
+    """The device time a launch of the kernels whose names hold ``kernel``
+    over ``calls`` calls of ``fn`` traced under ``torch.profiler``, and
+    :func:`trace_call`'s record.  The profiler recorded no launch of a
+    window that held one call alone on an H100: a torch operation opens
+    the window, the calls follow, and the time is taken per launch it
+    recorded."""
+    import torch
+
+    def run():
+        torch.zeros(1, device="cuda").add_(1.0)
+        for _ in range(calls):
+            fn()
+    tr = trace_call(run, kernel)
+    return tr["kernel_ms"] / max(tr["kernel_launches"], 1), tr
 
 
 def channel_errs(got, ref):
@@ -476,23 +499,33 @@ def main():
         err, scale = rel_err(got, ref)
         max_abs = err * scale
         del got, ref
-        ms = time_ms(lambda: fir.fir_cuda(sig, taps))
+        runs = time_runs(lambda: fir.fir_cuda(sig, taps), 25)
+        ms = statistics.median(runs)
         plain_ms = time_ms(lambda: fir.fir_plain(sig, taps))
+        # library: one cuDNN convolution (zero padding on both sides)
+        wflip = torch.as_tensor(np.ascontiguousarray(taps[::-1]),
+                                dtype=torch.float32, device=dev).view(1, 1, K)
+        lib_runs = time_runs(lambda: torch.nn.functional.conv1d(
+            sig.view(-1, 1, nt), wflip, padding=K - 1), 25)
+        lib_ms = statistics.median(lib_runs)
+        b2 = bound(fir_ops(nt, K, sig.shape[0]), 8.0 * sig.numel())
+        # the direct form's 2 K flops an output at the book's float32 rate
+        floor2 = bound(profiling.fir_flops(nt, K, sig.shape[0], "direct"),
+                       8.0 * sig.numel())["bound_ms"]
+        dms2, tr2 = trace_launches(lambda: fir.fir_cuda(sig, taps),
+                                   "fir_kernel")
         emit("fir_vs_plain", shape=list(sig.shape), K=K, rel_err=err,
-             max_abs_err=max_abs, tol=FIR_TOL, ms=ms, plain_ms=plain_ms)
+             max_abs_err=max_abs, tol=FIR_TOL, ms=ms,
+             ms_quartiles=statistics.quantiles(runs, n=4),
+             plain_ms=plain_ms, library_ms=lib_ms,
+             library_ms_quartiles=statistics.quantiles(lib_runs, n=4),
+             kernel_device_ms=dms2, traced_launches=tr2["kernel_launches"],
+             ptxas=ptxas_report("fir_kernel"), direct_floor_ms=floor2, **b2)
         check(err <= FIR_TOL, f"kernel A {list(sig.shape)} K={K}: rel err "
               f"{err} > {FIR_TOL}")
         if nt == nt0 and K == 129:
-            # library: one cuDNN convolution (zero padding on both sides)
-            wflip = torch.as_tensor(np.ascontiguousarray(taps[::-1]),
-                                    dtype=torch.float32,
-                                    device=dev).view(1, 1, K)
-            lib_ms = time_ms(lambda: torch.nn.functional.conv1d(
-                sig.view(-1, 1, nt), wflip, padding=K - 1))
-            kernels["fir"] = dict(
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms,
-                **bound(fir_ops(nt, K, sig.shape[0]), 8.0 * sig.numel()))
+            kernels["fir"] = dict(max_abs_err=max_abs, ms=ms,
+                                  plain_ms=plain_ms, library_ms=lib_ms, **b2)
     del sig9, sig
 
     # ---- phase 3: kernel B against its plain version --------------------- #
@@ -1146,13 +1179,17 @@ def main():
         (probe.GROUP, probe.GROUP)) / 16.0, device=dev).to(torch.bfloat16)
     err, scale = rel_err(probe.colsum_cuda(xp, rows_blk),
                          probe.colsum_plain(xp, rows_blk))
-    ms = time_ms(lambda: probe.colsum_cuda(xp, rows_blk))
+    f_runs = time_runs(lambda: probe.colsum_cuda(xp, rows_blk), 25)
+    ms = statistics.median(f_runs)
     plain_ms = time_ms(lambda: probe.colsum_plain(xp, rows_blk))
-    lib_ms = time_ms(lambda: torch.sum(xp, 0, keepdim=True))
+    lib_runs = time_runs(lambda: torch.sum(xp, 0, keepdim=True), 25)
+    lib_ms = statistics.median(lib_runs)
     b13 = bound(float(nrows * ncols), 4.0 * (nrows + 1) * ncols)
     emit("probe_vs_plain", kernel="colsum", nrows=nrows, N=ncols,
          rows_blk=rows_blk, rel_err=err, max_abs_err=err * scale,
-         tol=COLSUM_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b13)
+         tol=COLSUM_TOL, ms=ms, ms_quartiles=statistics.quantiles(f_runs, n=4),
+         plain_ms=plain_ms, library_ms=lib_ms,
+         library_ms_quartiles=statistics.quantiles(lib_runs, n=4), **b13)
     check(err <= COLSUM_TOL, f"kernel colsum: rel err {err} > {COLSUM_TOL}")
     kernels["colsum"] = dict(max_abs_err=err * scale, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms, **b13)
@@ -1205,14 +1242,8 @@ def main():
     cub_err, _ = rel_err(cublas_chain(xp, Tp, passes),
                          probe.chain_plain(xp, Tp, rows_blk, passes))
     cub_ms = time_ms(lambda: cublas_chain(xp, Tp, passes), 25)
-    # the profiler recorded no launch of a window that held one call alone
-    # on an H100: a torch operation opens the window, five calls follow,
-    # and the kernel's device time is taken per launch it recorded
-    def five_calls():
-        torch.zeros(1, device=dev).add_(1.0)
-        for _ in range(5):
-            probe.chain_cuda(xp, Tp, rows_blk, passes)
-    tr13 = trace_call(five_calls, "chain_kernel")
+    dms13, tr13 = trace_launches(
+        lambda: probe.chain_cuda(xp, Tp, rows_blk, passes), "chain_kernel")
     peak_bf16 = profiling.peak_tflops("bf16", smi)
     emit("probe_vs_plain", kernel="chain", nrows=nrows, N=ncols,
          rows_blk=rows_blk, passes=passes, rel_err=cases["dense"]["rel_err"],
@@ -1222,9 +1253,7 @@ def main():
          cublas_chain_ms=cub_ms, cublas_chain_calls=passes,
          cublas_chain_rel_err=cub_err,
          tflops=fl13 / ms / 1e9, bf16_book_share=fl13 / ms / 1e9 / peak_bf16,
-         kernel_device_ms=tr13["kernel_ms"] / max(tr13["kernel_launches"],
-                                                  1),
-         traced_launches=tr13["kernel_launches"],
+         kernel_device_ms=dms13, traced_launches=tr13["kernel_launches"],
          ptxas=ptxas_report("chain"),
          device_idle_share=tr13["device_idle_share"],
          top_device_ms=tr13["top_device_ms"], library_ms=None, **b13)
@@ -1541,16 +1570,33 @@ def main():
     tail17 = int(torch.count_nonzero(got[nr17:]).item())
     del got, ref
     torch.cuda.empty_cache()
-    ms17 = time_ms(lambda: fir.fir_t_cuda(x0, y0, taps0, nrows17, sub17))
+    runs17 = time_runs(
+        lambda: fir.fir_t_cuda(x0, y0, taps0, nrows17, sub17), 25)
+    ms17 = statistics.median(runs17)
     plain17 = time_ms(lambda: fir.fir_transpose_plain(x0, y0, taps0, nrows17,
                                                       sub17))
     b17 = bound(fir_ops(nt0, len(taps0), C17),
                 4.0 * C17 * nt0 + 4.0 * nrows17 * C17 * 128)
+    dms17, tr17 = trace_launches(
+        lambda: fir.fir_t_cuda(x0, y0, taps0, nrows17, sub17), "fir_t_kernel")
+    # kernels A and I run one loop on one staging plan: I without sub,
+    # de-interleaved, is A bit for bit on the config-0 signals
+    a17 = fir.fir_cuda(torch.cat([x0[None], y0]), taps0)
+    i17 = fir.fir_t_cuda(x0, y0, taps0, nr17).reshape(
+        nr17, C17, 128).permute(1, 0, 2).reshape(C17, nt0)
+    same17 = bool(torch.equal(a17, i17))
+    differ17 = int((a17 != i17).sum().item())
+    del a17, i17
     emit("fir_t_vs_plain", nt=nt0, C=C17, K=len(taps0), nrows_out=nrows17,
          rel_err=err17, max_abs_err=err17 * scale17, tol=FIR_T_TOL,
-         tail_nonzero=tail17, ms=ms17, plain_ms=plain17, **b17)
+         tail_nonzero=tail17, ms=ms17,
+         ms_quartiles=statistics.quantiles(runs17, n=4), plain_ms=plain17,
+         kernel_device_ms=dms17, traced_launches=tr17["kernel_launches"],
+         ptxas=ptxas_report("fir_t_kernel"), a_equals_i=same17,
+         a_i_differing=differ17, **b17)
     check(err17 <= FIR_T_TOL, f"kernel I: rel err {err17} > {FIR_T_TOL}")
     check(tail17 == 0, f"kernel I: {tail17} non-zero values past the signal")
+    check(same17, f"kernels A and I differ at {differ17} outputs")
     kernels["fir_t"] = dict(max_abs_err=err17 * scale17, ms=ms17,
                             plain_ms=plain17, library_ms=None, **b17)
 

@@ -56,11 +56,11 @@
 //   neighbouring banks and the ring needs no padding.  The raw samples of
 //   the new span (up to N + K - 1 per sequence) are staged in the FFT's
 //   buffer, which is free until the first pass stores.
-// - the filter is register-blocked (fir4): a thread makes 4 consecutive
-//   outputs of both sequences from 16-byte loads, one of 4 taps (a
-//   broadcast) and one of 4 samples per sequence for 32 FMAs, with
-//   fir_point's products in fir_point's order, so the blocking changes no
-//   result.
+// - the filter is register-blocked (fir.cuh::fir4, which kernels A and I
+//   run too): a thread makes 4 consecutive outputs of both sequences from
+//   16-byte loads, one of 4 taps (a broadcast) and one of 4 samples per
+//   sequence for 32 FMAs, with fir_point's products in fir_point's order,
+//   so the blocking changes no result.
 // - at N = 16384 the ring (256 KB) and the FFT buffer (139 KB) do not fit
 //   in the 227 KB of a block together: there each unit filters its whole
 //   span (N + K - 1 staged samples a sequence) straight into the first
@@ -173,78 +173,6 @@ __device__ __forceinline__ float2 fir_pair(const float* a, const float* b,
         sb = fmaf(w, q[-k], sb);
     }
     return make_float2(sa, sb);
-}
-
-// o[i] += t * w[E + i], i < 4.
-template <int E>
-__device__ __forceinline__ void fma4(float (&o)[4], float t,
-                                     const float (&w)[8]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = fmaf(t, w[E + i], o[i]);
-}
-
-__device__ __forceinline__ void window8(float (&w)[8], float4 lo, float4 hi) {
-    w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
-    w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
-}
-
-// Outputs j0 .. j0 + 3 (j0 a multiple of 4) of fir_point for sequence a
-// (and b, with TWO), from raw samples at 16-byte-aligned a and b and the
-// taps reversed in rt (rt[d] = taps[K - 1 - d], 16-byte aligned).  Output
-// j sums rt[d] * s[j + d] for d from K - 1 down to 0, fir_point's products
-// in fir_point's order.  Per 4 taps: one 16-byte load of taps (a
-// broadcast) and one of samples per sequence, for 16 FMAs per sequence;
-// the other 16 bytes of a thread's window of 8 samples carry over.
-template <bool TWO>
-__device__ __forceinline__ void fir4(const float* a, const float* b,
-                                     const float* rt, int K, int j0,
-                                     float (&oa)[4], float (&ob)[4]) {
-    const float4* pa = reinterpret_cast<const float4*>(a + j0);
-    const float4* pb = reinterpret_cast<const float4*>(b + j0);
-    const float4* pt = reinterpret_cast<const float4*>(rt);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) oa[i] = ob[i] = 0.f;
-    int g = (K - 1) >> 2;   // the group of d = 4g .. 4g + 3
-    float4 ha = pa[g + 1], hb = TWO ? pb[g + 1] : ha;
-    float wa[8], wb[8];
-    {
-        // the top group holds d <= K - 1 only
-        const float4 la = pa[g], lb = TWO ? pb[g] : la, t = pt[g];
-        const int emax = K - 1 - 4 * g;
-        window8(wa, la, ha);
-        window8(wb, lb, hb);
-        if (emax >= 3) {
-            fma4<3>(oa, t.w, wa);
-            if (TWO) fma4<3>(ob, t.w, wb);
-        }
-        if (emax >= 2) {
-            fma4<2>(oa, t.z, wa);
-            if (TWO) fma4<2>(ob, t.z, wb);
-        }
-        if (emax >= 1) {
-            fma4<1>(oa, t.y, wa);
-            if (TWO) fma4<1>(ob, t.y, wb);
-        }
-        fma4<0>(oa, t.x, wa);
-        if (TWO) fma4<0>(ob, t.x, wb);
-        ha = la;
-        hb = lb;
-    }
-    for (--g; g >= 0; --g) {
-        const float4 la = pa[g], lb = TWO ? pb[g] : la, t = pt[g];
-        window8(wa, la, ha);
-        window8(wb, lb, hb);
-        fma4<3>(oa, t.w, wa);
-        if (TWO) fma4<3>(ob, t.w, wb);
-        fma4<2>(oa, t.z, wa);
-        if (TWO) fma4<2>(ob, t.z, wb);
-        fma4<1>(oa, t.y, wa);
-        if (TWO) fma4<1>(ob, t.y, wb);
-        fma4<0>(oa, t.x, wa);
-        if (TWO) fma4<0>(ob, t.x, wb);
-        ha = la;
-        hb = lb;
-    }
 }
 
 // One bin's terms from z = Z_k and w = Z_{N-k} of scaled sequences, with

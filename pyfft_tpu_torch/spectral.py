@@ -555,8 +555,8 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
     (computed on ``device``; see the module docstring).  ``fft_backend``:
     None/'auto' or 'xla'/'mxu' (``torch.fft``), or 'pallas' (kernel B where
     its gate holds, else kernel E, else ``torch.fft``: :func:`pallas_route`).
-    ``mesh`` is not supported yet: the mesh tier is ROADMAP Queue 1
-    item 11 (``torch.distributed``).
+    ``mesh`` is not supported yet: it needs the mesh tier on
+    ``torch.distributed``, which is not ported yet.
 
     Returns ``(freq, Pxy, Pxx, Pyy, Cxy, phi_xy, fftinfo)`` as NumPy
     arrays.  Where segment arithmetic after reflect-extension would index
@@ -565,8 +565,8 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
     """
     if mesh is not None:
         raise NotImplementedError(
-            "fft_pwelch(mesh=...) is not ported yet: the mesh tier on "
-            "torch.distributed is ROADMAP Queue 1 item 11")
+            "fft_pwelch(mesh=...) needs the mesh tier on "
+            "torch.distributed, which is not ported yet")
     calcNavr = Navr is None
     if windowfunction is None:
         windowfunction = "Hanning"

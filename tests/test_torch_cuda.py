@@ -34,8 +34,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nch,nt,K", [(3, 100003, 1), (9, 1 << 20, 129),
-                                      (2, 5000, 1024)])
+@pytest.mark.parametrize("nch,nt,K", [
+    (3, 100003, 1), (9, 1 << 20, 129), (2, 5000, 1024),
+    (2, 4097, 2),        # nt % 4 == 1: the row's last group stored by floats
+    (3, 3070, 3),        # nt % 4 == 2, K % 4 == 3 (the top group's emax 2)
+    (1, 10001, 5),       # emax 0: the top group holds one tap
+    (4, 65539, 127),     # nt % 4 == 3
+    (2, 2050, 128),      # K % 4 == 0, a tile cut short after two samples
+    (1, 7, 1024),        # the signal shorter than the halo
+])
 def test_fir_kernel_matches_plain_on_card(cuda_device, nch, nt, K):
     """Kernel A vs its plain version in float64 on the card: max |diff| /
     max |ref| <= 1e-5 (float32 accumulation of K products)."""
@@ -49,6 +56,25 @@ def test_fir_kernel_matches_plain_on_card(cuda_device, nch, nt, K):
     ref = pfir.fir_plain(x.double(), taps)
     err = ((got.double() - ref).abs().max() / ref.abs().max()).item()
     assert err <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,nr,K", [(8, 2000, 129), (2, 300, 1),
+                                      (3, 97, 1024), (0, 64, 6)])
+def test_fir_and_fir_t_kernels_agree_bit_for_bit_on_card(cuda_device, nch,
+                                                          nr, K):
+    """Kernels A and I run one loop (fir.cuh::fir4) on one staging plan:
+    kernel I without ``sub``, de-interleaved, is kernel A's output bit for
+    bit on the same signals."""
+    rng = np.random.default_rng(nr + K)
+    nt, C = 128 * nr, nch + 1
+    sig = torch.as_tensor(rng.standard_normal((C, nt)), dtype=torch.float32,
+                          device=cuda_device)
+    taps = rng.standard_normal(K) / K
+    a = pfir.fir_cuda(sig, taps)
+    i = pfir.fir_t_cuda(sig[0].contiguous(), sig[1:], taps, nr)
+    i = i.reshape(nr, C, 128).permute(1, 0, 2).reshape(C, nt)
+    assert torch.equal(a, i)
 
 
 @pytest.mark.cuda

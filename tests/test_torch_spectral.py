@@ -266,7 +266,7 @@ def test_backend_names_and_mesh():
     for name in ("xla", "mxu", "pallas"):
         assert psp.resolve_fft_backend(name) == name
     t, x, y = _signals(N=512)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="the mesh tier on torch.distributed, which is not ported yet"):
         pt.fft_pwelch(t, x, y, mesh="auto", plotit=False)
 
 
