@@ -36,7 +36,11 @@ own main path inside phase 4.  The paths:
 - the heat-pulse transport analysis, ``HeatPulseFFT(...).run(fft_backend=
   'pallas')``, on a 10 s programme of 32 ECE channels at 40 kHz (phase
   12), after kernel E against its plain version (phase 11): nwins 4871,
-  not a power of two, so kernel E takes the Welch stage;
+  not a power of two, so kernel E takes the Welch stage (Bluestein on
+  8192-point FFTs); phase 11 holds E at that geometry (timed 25 times,
+  traced, with its occupancy and ptxas' report), with linear detrend at
+  nwins 4096, through the pre-framed entry at nwins 2047, with four
+  channels at 1:1 to 1:1000 each held to its own max, and at nwins 3;
 - the profiling tier: kernels F and G against their plain versions (G on
   the probe's inputs and on a two-tap T whose chain does not depend on the
   order of float32 sums, each with a control that leaves out the bf16
@@ -158,17 +162,20 @@ def chain_unrounded(x, T, rows_blk, passes):
     return y.sum(dim=(0, 1)).reshape(1, -1)
 
 
-def ptxas_report(kernel):
+def ptxas_report(kernel, named=False):
     """ptxas' lines (registers, spills, stack) for the kernels whose names
-    hold ``kernel``, from the build's ``build.log``."""
+    hold ``kernel``, from the build's ``build.log``; with ``named``, a dict
+    from each kernel's (mangled) name to its lines."""
     from pyfft_tpu_torch.ops import _build
-    out, keep = [], False
+    out, keep = {}, None
     for line in (_build.build().parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            keep = kernel in line
+            keep = (line.split("'")[1] if "'" in line else line) \
+                if kernel in line else None
         elif keep and ("registers" in line or "spill" in line):
-            out.append(" ".join(line.replace("ptxas info    :", "").split()))
-    return out
+            out.setdefault(keep, []).append(
+                " ".join(line.replace("ptxas info    :", "").split()))
+    return out if named else [v for lines in out.values() for v in lines]
 
 
 def chain_flip_share(T, ncols, seed):
@@ -1018,19 +1025,27 @@ def main():
     y_hp = torch.as_tensor(np.ascontiguousarray(hp_data["sig"][span].T),
                            dtype=torch.float32, device=dev)
     x8, y8 = x0[:1 << 22], y0[:, :1 << 22]
+    x16, y16 = x0[:1 << 16], y0[:, :1 << 16]
     rng = np.random.default_rng(SEED + 5)
     B11, n11 = 4096, 2047
     xfr = torch.as_tensor(rng.standard_normal((B11, n11)),
                           dtype=torch.float32, device=dev)
     yfr = torch.as_tensor(rng.standard_normal((4, B11, n11)),
                           dtype=torch.float32, device=dev)
+    quiet = torch.tensor([1.0, 1e-1, 1e-2, 1e-3], device=dev)[:, None]
     # (a) the heat-pulse geometry, (b) linear detrend at a radix-2 nwins,
-    # (c) the pre-framed entry (hop = nwins, no detrend) at an odd nwins
+    # (c) the pre-framed entry (hop = nwins, no detrend) at an odd nwins,
+    # (d) the heat-pulse geometry with four channels at 1:1 to 1:1000 of
+    # their amplitude, each held to its own max, (e) nwins 3 (M = 16, 128
+    # transforms a block)
     cases = (("a_heatpulse", x_hp, y_hp, 4871, 2435, 155, 1),
              ("b_linear_detrend_radix2", x8, y8, 4096, 2048,
               ((1 << 22) - 4096) // 2048 + 1, -1),
              ("c_preframed_odd", xfr.reshape(-1), yfr.reshape(4, -1), n11,
-              n11, B11, 0))
+              n11, B11, 0),
+             ("d_channels_1_to_1000", x_hp, y_hp[:4] * quiet, 4871, 2435,
+              155, 1),
+             ("e_nwins_3", x16, y16, 3, 1, (1 << 16) - 2, 0))
     for name, x, y, nwins, hop, navr, det in cases:
         win = np.hanning(nwins + 1)[:-1]
         nf = (nwins + 1) // 2 if nwins % 2 else nwins // 2
@@ -1046,29 +1061,61 @@ def main():
                 "Pyy": rel_err(got[1], ref[1]),
                 "Pxy": rel_err(torch.complex(got[2], got[3]),
                                torch.complex(ref[2], ref[3]))}
+        chan = channel_errs(got, ref) if name.startswith("d_") else None
         del got, ref
-        ms = time_ms(lambda: welch_v1.welch_dft_cuda(x, y, win, nf, norm,
-                                                     **kw))
+
+        def call():
+            return welch_v1.welch_dft_cuda(x, y, win, nf, norm, **kw)
+        runs = time_runs(call, 25 if name.startswith("a_") else 5)
+        ms = statistics.median(runs)
         plain_ms = time_ms(lambda: welch_v1.welch_dft_plain(x, y, win, nf,
                                                             norm, **kw))
         max_abs = max(e * sc for e, sc in errs.values())
         nsig = 1 + y.shape[0]
+        M = welch_v1.bluestein_size(nwins, nf)
         b11 = bound(profiling.welch_flops(navr, nwins, nsig - 1),
                     4.0 * nsig * (x.shape[0] + 3 * nf))
+        # the three passes' device time a launch (one chunk: a launch of
+        # each a call)
+        extra = dict(kernel_device_ms={
+            k: trace_launches(call, k)[0]
+            for k in ("dft_spectra", "dft_sums", "dft_combine")})
+        if name.startswith("a_"):
+            # the transforms' floor (two M-point FFTs a segment and signal
+            # at the float32 book rate), occupancy and ptxas' report of
+            # every instantiation
+            lib = _build.library()
+            extra.update(
+                ms_quartiles=statistics.quantiles(runs, n=4),
+                bluestein_floor_ms=bound(
+                    profiling.fft_flops(M, batch=2 * nsig * navr),
+                    4.0 * nsig * (x.shape[0] + 3 * nf))["bound_ms"],
+                blocks_per_sm={m: lib.pyfft_welch_dft_blocks_per_sm(m)
+                               for m in (M, welch_v1.MAX_NWINS * 2)},
+                ptxas={k: ptxas_report(k, named=True)
+                       for k in ("dft_spectra", "dft_sums", "dft_combine")})
         emit("welch_dft_vs_plain", case=name, nsig=nsig, nt=x.shape[0],
              nwins=nwins, hop=hop, navr=navr, detrend_style=det,
-             fft_points=welch_v1.bluestein_size(nwins),
-             rel_err={k: e for k, (e, _) in errs.items()},
-             max_abs_err=max_abs, tol=DFT_TOL, ms=ms, plain_ms=plain_ms,
-             **b11)
+             fft_points=M, rel_err={k: e for k, (e, _) in errs.items()},
+             channel_rel_err=chan, max_abs_err=max_abs, tol=DFT_TOL, ms=ms,
+             plain_ms=plain_ms, **extra, **b11)
         for k, (e, _) in errs.items():
             check(e <= DFT_TOL, f"kernel E {name} {k}: rel err {e} > "
                   f"{DFT_TOL}")
+        for k, e in (chan or {}).items():
+            check(max(e) <= DFT_TOL, f"kernel E {name} {k} per channel: "
+                  f"{e} > {DFT_TOL}")
         if name.startswith("a_"):
-            kernels["welch_dft"] = dict(max_abs_err=max_abs, ms=ms,
-                                        plain_ms=plain_ms, library_ms=None,
-                                        **b11)
-    del cases, x, y, xfr, yfr, x8, y8
+            check(M == 8192, f"kernel E ran {M} points at the heat-pulse "
+                  f"geometry")
+            check(extra["blocks_per_sm"][M] >= 2, f"kernel E holds "
+                  f"{extra['blocks_per_sm'][M]} blocks an SM at M = {M}")
+            kernels["welch_dft"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=None,
+                kernel_device_ms=sum(extra["kernel_device_ms"].values()),
+                **b11)
+    del cases, x, y, xfr, yfr, x8, y8, x16, y16
     torch.cuda.empty_cache()
 
     # ---- fourth main path: counts from here on --------------------------- #
@@ -1148,8 +1195,7 @@ def main():
     check(all(host.get(k, (0, 0))[1] == 1 for k in stages),
           f"profiler ranges {host}, want each of {stages} once")
     busy_s = sum(device_us.values()) / 1e6
-    kernel_e_s = sum(v for k, v in device_us.items()
-                     if "dft_" in k or "sum_partials" in k) / 1e6
+    kernel_e_s = sum(v for k, v in device_us.items() if "dft_" in k) / 1e6
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
     t_pw, t_h2d, t_core = (host[k][0] for k in stages)
     emit("main_heatpulse", nch=32, fs=fs_hp, T_s=10.0, tau_damp=TAU_DAMP,

@@ -1,7 +1,7 @@
 // Segment staging and the in-place radix-2 FFT in shared memory, shared by
-// the complex path of kernel B (welch.cu), kernel D (hilbert.cu) and kernel
-// E (welch_dft.cu), so that they run one FFT and each one's tests also
-// cover the others' transform.  Kernels C and B's real path (stft.cu,
+// the complex path of kernel B (welch.cu) and kernel D (hilbert.cu), so
+// that they run one FFT and each one's tests also cover the other's
+// transform.  Kernels C, E and B's real path (stft.cu, welch_dft.cu,
 // welch_pair.cu) run fft_reg.cuh's register-radix FFT instead.
 #pragma once
 

@@ -50,7 +50,9 @@ _SIGNATURES = {
     "pyfft_hilbert": ([_P, _P, _P, _I, _I, _P], _I),
     "pyfft_hilbert_blocks_per_sm": ([_I], _I),
     "pyfft_welch_dft": ([_P, _P, _LL, _P, _P, _D, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _D, _P], _I),
+                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D,
+                         _P], _I),
+    "pyfft_welch_dft_blocks_per_sm": ([_I], _I),
     "pyfft_colsum": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "pyfft_chain": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
 }

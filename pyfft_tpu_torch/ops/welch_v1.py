@@ -14,15 +14,21 @@ scaled by ``norm``, with ``Pxy = Y conj(X)``.  The caller applies the
 one-sided bin doubling.
 
 - On CUDA tensors :func:`welch_dft_cuda` launches kernel E
-  (``csrc/welch_dft.cu``): one spectrum per reference segment, kept in
-  device memory, then every channel's segments against it.  A segment
-  length that is not a power of two goes through Bluestein's algorithm on
-  ``M``-point radix-2 FFTs, ``M`` the least power of two ``>= 2*nwins -
-  1`` (:func:`bluestein_size`).  The chirp ``exp(-i pi n^2 / nwins)`` comes
-  from the exact integer ``n^2 mod 2*nwins`` in float64, and the chirp
-  filter's FFT is computed once per ``nwins`` on the host, in float64.
-  Each signal's mean and slope come from a float64 prologue in plain torch
-  (:func:`_trend`): block sums of ``x`` and of ``(t - tbar) x``.
+  (``csrc/welch_dft.cu``): the kept bins of every (signal, segment)
+  spectrum go to a scratch buffer, then float64 sums over the segments in
+  a fixed order give the outputs.  A segment length that is not a power
+  of two (or is below 16) goes through Bluestein's algorithm on ``M``-point
+  FFTs cut to the ``nfreq`` kept bins, ``M`` the least power of two ``>=
+  max(16, nwins + nfreq - 1)`` (:func:`bluestein_size`; 8192 at the
+  heat-pulse geometry, nwins 4871).  The chirp ``exp(-i pi n^2 / nwins)``
+  comes from the exact integer ``n^2 mod 2*nwins`` in float64, and the
+  chirp filter's FFT is computed once per ``(nwins, nfreq)`` on the host,
+  in float64.  Each signal's mean and slope come from a float64 prologue
+  in plain torch (:func:`_trend`): block sums of ``x`` and of ``(t -
+  tbar) x``.  The scratch holds at most ``SCRATCH_CAP`` bytes (256 MiB):
+  the segments are taken in chunks, and the channels too where one
+  segment of every signal does not fit (beyond 8189 channels at nfreq
+  4097) (:func:`_chunks`), one call of the C entry a chunk.
 - On CPU tensors :func:`welch_dft_plain` runs: detrend -> frames ->
   window -> ``torch.fft.fft`` -> sums, in the input's dtype.
 
@@ -30,7 +36,7 @@ one-sided bin doubling.
 port's device (:func:`pyfft_tpu_torch.config.resolve_device`).
 
 Domain of the kernel (re-derived for the card; the TPU's VMEM tiling does
-not apply): ``1 <= nwins <= 8192`` (so ``M <= 16384``, 128 KB of complex64
+not apply): ``1 <= nwins <= 8192`` (so ``M <= 16384``, 136 KB of complex64
 in shared memory), any ``hop >= 1``, ``1 <= nfreq <= nwins // 2 + 1``,
 any ``nch >= 0`` (up to 65534), ``detrend_style`` in {-1, 0, 1}, real
 float32 signals.  The JAX gate :func:`pallas_welch_applicable` holds only
@@ -46,15 +52,18 @@ import torch
 
 from . import _build
 from ..config import resolve_device
-from .welch import (_SUM_BLOCK, _groups, _row_sums, _signals, _twiddles,
-                    welch_plain)
+from .welch import _SUM_BLOCK, _row_sums, _signals, _twiddles, welch_plain
 from ..utils.detrend import detrend_func
 
 __all__ = ["welch_pallas_fused", "welch_power_pallas",
            "pallas_welch_applicable", "bluestein_size", "welch_dft_plain",
-           "welch_dft_cuda", "kernel_applicable", "MAX_NWINS", "LAUNCHES"]
+           "welch_dft_cuda", "kernel_applicable", "MAX_NWINS", "SCRATCH_CAP",
+           "LAUNCHES"]
 
 MAX_NWINS = 8192
+
+# Bytes of kernel E's spectra scratch at most (module docstring).
+SCRATCH_CAP = 256 << 20
 
 LAUNCHES = 0
 
@@ -132,14 +141,28 @@ def welch_dft_plain(x, y, win, nfreq, norm, *, navr, nwins, hop,
 # Kernel E
 # --------------------------------------------------------------------------- #
 
-def bluestein_size(nwins):
-    """Points of the radix-2 FFTs kernel E runs for ``nwins``-sample
-    segments: ``nwins`` itself when it is a power of two, else the least
-    power of two ``>= 2*nwins - 1``."""
+def _direct(nwins):
+    """Whether kernel E transforms ``nwins``-sample segments directly: a
+    power of two of at least 16 points (``fft_reg.cuh``'s smallest)."""
+    return nwins >= 16 and nwins & (nwins - 1) == 0
+
+
+def bluestein_size(nwins, nfreq=None):
+    """Points of the FFTs kernel E runs for ``nwins``-sample segments.
+
+    With ``nfreq`` (the kernel's plan): ``nwins`` itself for a power of two
+    of at least 16, else the least power of two ``>= max(16, nwins + nfreq
+    - 1)``, enough for the first ``nfreq`` bins.  Without it, the size for
+    all ``nwins`` bins: ``nwins`` for a power of two, else the least power
+    of two ``>= 2*nwins - 1``."""
     nwins = int(nwins)
-    if nwins & (nwins - 1) == 0:
+    if nfreq is None:
+        if nwins & (nwins - 1) == 0:
+            return nwins
+        return 1 << (2 * nwins - 2).bit_length()
+    if _direct(nwins):
         return nwins
-    return 1 << (2 * nwins - 2).bit_length()
+    return 1 << (max(16, nwins + int(nfreq) - 1) - 1).bit_length()
 
 
 @lru_cache(maxsize=32)
@@ -151,31 +174,34 @@ def _chirp(nwins: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=32)
-def bluestein_tables(nwins: int):
-    """``(M, filt, post)`` in complex128 for a segment length that is not
-    a power of two: ``filt`` the M-point FFT of the chirp filter
-    ``conj(chirp[|m|])``, ``|m| < nwins``, and ``post = chirp / M``.  For a
-    ``(nwins,)`` segment ``v``, with ``a`` = ``v * chirp`` zero-padded to
-    ``M``, ``post * conj(fft(conj(fft(a) * filt)))`` is the first
-    ``nwins`` bins of ``fft(v)`` (kernel E's arithmetic)."""
-    M = bluestein_size(nwins)
+def bluestein_tables(nwins: int, nfreq=None):
+    """``(M, filt, post)`` in complex128 for Bluestein's algorithm on
+    ``M = bluestein_size(nwins, nfreq)`` points: ``filt`` the M-point FFT
+    of the chirp filter, ``conj(chirp[|m|])`` at ``m mod M`` for ``-(nwins
+    - 1) < m < K``, and ``post = chirp[:K] / M``, ``K`` = ``nfreq``, or
+    ``nwins`` without it.  For a ``(nwins,)`` segment ``v``, with ``a`` =
+    ``v * chirp`` zero-padded to ``M``, ``post * conj(fft(conj(fft(a) *
+    filt)))[:K]`` is the first ``K`` bins of ``fft(v)`` (kernel E's
+    arithmetic)."""
+    M = bluestein_size(nwins, nfreq)
+    K = nwins if nfreq is None else int(nfreq)
     w = _chirp(nwins)
     b = np.zeros(M, dtype=np.complex128)
-    b[:nwins] = np.conj(w)
+    b[:K] = np.conj(w[:K])
     if nwins > 1:
         b[M - nwins + 1:] = np.conj(w[1:][::-1])
-    return M, np.fft.fft(b), w / M
+    return M, np.fft.fft(b), w[:K] / M
 
 
 @lru_cache(maxsize=16)
-def _device_tables(nwins: int, device: str):
+def _device_tables(nwins: int, nfreq: int, device: str):
     """Kernel E's constant operands on ``device``: ``(M, filt, post,
-    twiddles)``; ``filt`` and ``post`` are None for a power of two."""
-    M = bluestein_size(nwins)
+    twiddles)``; ``filt`` and ``post`` are None for a direct transform."""
+    M = bluestein_size(nwins, nfreq)
     tw = _twiddles(M, device)
-    if M == nwins:
+    if _direct(nwins):
         return M, None, None, tw
-    _, filt, post = bluestein_tables(nwins)
+    _, filt, post = bluestein_tables(nwins, nfreq)
     return (M, torch.as_tensor(filt.astype(np.complex64), device=device),
             torch.as_tensor(post.astype(np.complex64), device=device), tw)
 
@@ -183,12 +209,37 @@ def _device_tables(nwins: int, device: str):
 @lru_cache(maxsize=16)
 def _pre_table(win_bytes: bytes, device: str) -> torch.Tensor:
     """Kernel E's ``pre`` operand on ``device``: the float64 window (as
-    bytes) times the chirp, or the window alone for a power of two, as
+    bytes) times the chirp, or the window alone for a direct transform, as
     complex64."""
     w = np.frombuffer(win_bytes, dtype=np.float64)
-    nwins = w.size
-    pre = w * _chirp(nwins) if bluestein_size(nwins) != nwins else w
+    pre = w if _direct(w.size) else w * _chirp(w.size)
     return torch.as_tensor(pre.astype(np.complex64), device=device)
+
+
+def _chunks(nch, navr, nfreq, cap=None):
+    """Kernel E's chunks, ``[(c0, nc, s0, ns), ...]`` in launch order:
+    segments ``[s0, s0 + ns)`` of x and of channels ``[c0, c0 + nc)``.
+    A chunk's scratch, ``(1 + nc) * ns`` spectra of ``nfreq`` complex64,
+    holds at most ``cap`` bytes (at least x and one channel's spectrum of
+    one segment): every channel in one group where one segment of every
+    signal fits, and as many segments as fit.  ``cap``: ``SCRATCH_CAP``
+    by default."""
+    cap = SCRATCH_CAP if cap is None else cap
+    spec = 8 * nfreq
+    nc = max(1, min(nch, cap // spec - 1)) if nch else 0
+    ns = max(1, min(navr, cap // (spec * (1 + nc))))
+    return [(c0, min(nc, nch - c0), s0, min(ns, navr - s0))
+            for c0 in range(0, max(nch, 1), max(nc, 1))
+            for s0 in range(0, navr, ns)]
+
+
+def _sum_split(ncols, ns, nfreq, sms):
+    """Segments a group of kernel E's sums pass, for ``ncols`` columns,
+    ``ns`` segments and ``nfreq`` bins on a card of ``sms`` SMs: at least
+    16, and few enough that the blocks (32 bins of a column and a group
+    each) number about 8 an SM where the segments allow."""
+    blocks = -(-nfreq // 32) * ncols
+    return max(16, -(-ns // -(-8 * sms // blocks)))
 
 
 def _moments(rows):
@@ -259,7 +310,7 @@ def welch_dft_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop,
         raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
                          f"fit {nt} samples")
     dev = x.device
-    M, filt, post, tw = _device_tables(int(nwins), str(dev))
+    M, filt, post, tw = _device_tables(int(nwins), int(nfreq), str(dev))
     w = np.asarray(win, dtype=np.float64)
     if w.shape != (nwins,):
         raise ValueError(f"window of shape {w.shape}, need ({nwins},)")
@@ -268,24 +319,33 @@ def welch_dft_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop,
     my, sy = _trend(y, detrend_style)
     mean = torch.cat([mx, my]).contiguous()
     slope = torch.cat([sx, sy]).contiguous()
-    ngroups = _groups(navr, nch + 1, dev)
-    xs = torch.empty((navr, nfreq), dtype=torch.complex64, device=dev)
-    part = torch.empty((ngroups, nch + 1, 3, nfreq), dtype=torch.float64,
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = [(c0, nc, s0, ns, _sum_split(1 + nc - (c0 > 0), ns, nfreq, sms))
+            for c0, nc, s0, ns in _chunks(nch, navr, nfreq)]
+    _, nc, _, ns, _ = plan[0]
+    spec = torch.empty(((1 + nc) * ns, nfreq), dtype=torch.complex64,
                        device=dev)
+    part = torch.empty(max(-(-ns // spg) * (1 + nc - (c0 > 0))
+                           for c0, nc, _, ns, spg in plan) * 3 * nfreq,
+                       dtype=torch.float64, device=dev)
+    acc = (torch.empty((nch + 1, 3, nfreq), dtype=torch.float64, device=dev)
+           if ns < navr else None)
     out = torch.empty((nch + 1, 3, nfreq), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pyfft_welch_dft(
-            x.data_ptr(), y.data_ptr() if nch else x.data_ptr(),
-            y.stride(0) if nch else 0, mean.data_ptr(), slope.data_ptr(),
-            (nt - 1) / 2.0, pre.data_ptr(),
-            filt.data_ptr() if filt is not None else None,
-            post.data_ptr() if post is not None else None, tw.data_ptr(),
-            xs.data_ptr(), part.data_ptr(), out.data_ptr(), nch, int(nwins),
-            int(M), int(hop), int(navr), ngroups, int(nfreq), float(norm),
-            stream)
-        _build.check(rc, "welch dft kernel")
+        for c0, nc, s0, ns, spg in plan:
+            rc = lib.pyfft_welch_dft(
+                x.data_ptr(), y.data_ptr() if nch else x.data_ptr(),
+                y.stride(0) if nch else 0, mean.data_ptr(), slope.data_ptr(),
+                (nt - 1) / 2.0, pre.data_ptr(),
+                filt.data_ptr() if filt is not None else None,
+                post.data_ptr() if post is not None else None, tw.data_ptr(),
+                spec.data_ptr(), part.data_ptr(),
+                acc.data_ptr() if acc is not None else None, out.data_ptr(),
+                nch, c0, nc, s0, ns, spg, int(navr), int(nwins), int(M),
+                int(hop), int(nfreq), float(norm), stream)
+            _build.check(rc, "welch dft kernel")
     LAUNCHES += 1
     return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]
 

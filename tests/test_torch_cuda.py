@@ -382,6 +382,10 @@ def test_blocked_iir_on_card_matches_cpu(cuda_device):
     (1, 3000, 3, 1, 0),             # shortest Bluestein length
     (4, 20000, 8191, 3000, 1),      # longest (M = 16384)
     (2, 5000, 1, 1, 0),             # one-sample segments
+    (0, 400000, 4871, 2435, 1),     # the heat-pulse nwins, no channels
+    (5, 400000, 4871, 2435, -1),    # the heat-pulse nwins, odd nch
+    (3, 1 << 16, 16, 8, 1),         # the shortest direct transform
+    (2, 1 << 16, 8, 3, -1),         # a power of two below 16 (M = 16)
 ])
 def test_welch_dft_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins,
                                                 hop, detrend):
@@ -412,6 +416,70 @@ def test_welch_dft_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins,
         if r.numel():
             err = ((g.to(r.dtype) - r).abs().max() / r.abs().max()).item()
             assert err <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("detrend", [1, -1])
+def test_welch_dft_kernel_holds_each_channel_to_its_own_max_on_card(
+        cuda_device, detrend):
+    """Kernel E at the heat-pulse nwins (M = 8192) with channels at 1, 1/10,
+    1/100 and 1/1000 of their coherent part's amplitude: each output of
+    each channel (Pyy, and Pxy as a complex row) and Pxx within 2e-5 of
+    its own max |ref| (each signal has its own transforms)."""
+    rng = np.random.default_rng(47)
+    nt, nwins, hop = 120000, 4871, 2435
+    x = rng.standard_normal(nt) + 0.2
+    y = 0.5 * x + rng.standard_normal((4, nt))
+    y /= np.array([1.0, 1e1, 1e2, 1e3])[:, None]
+    xt = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=cuda_device)
+    navr = (nt - nwins) // hop + 1
+    nf = nwins // 2 + 1
+    win = np.hanning(nwins + 1)[:-1]
+    kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=detrend)
+    got = pv.welch_dft_cuda(xt, yt, win, nf, 1.0 / navr, **kw)
+    ref = pv.welch_dft_plain(xt.double(), yt.double(), win, nf, 1.0 / navr,
+                             **kw)
+
+    def err(g, r):
+        return ((g.to(r.dtype) - r).abs().max() / r.abs().max()).item()
+
+    assert err(got[0], ref[0]) <= 2e-5
+    for c in range(4):
+        assert err(got[1][c], ref[1][c]) <= 2e-5
+        assert err(torch.complex(got[2][c], got[3][c]),
+                   torch.complex(ref[2][c], ref[3][c])) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap_spectra", [7, 3])
+def test_welch_dft_kernel_in_chunks_matches_one_chunk_on_card(
+        cuda_device, monkeypatch, cap_spectra):
+    """Kernel E with its scratch capped at 7 spectra (every signal in one
+    group, one segment a chunk: the sums carried in float64 from chunk to
+    chunk) and at 3 (channel groups of two, x transformed again in each):
+    within 1e-6 of max of the same call in one chunk (float32 outputs of
+    float64 sums added in another order, so at most a rounding apart), and
+    one launch counted per call."""
+    rng = np.random.default_rng(5)
+    nt, nwins, hop, nch = 30000, 1000, 700, 5
+    xt = torch.as_tensor(rng.standard_normal(nt) + 0.1,
+                         dtype=torch.float32, device=cuda_device)
+    yt = torch.as_tensor(rng.standard_normal((nch, nt)),
+                         dtype=torch.float32, device=cuda_device)
+    navr = (nt - nwins) // hop + 1
+    nf = nwins // 2 + 1
+    win = np.hanning(nwins + 1)[:-1]
+    kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=-1)
+    one = pv.welch_dft_cuda(xt, yt, win, nf, 1.0 / navr, **kw)
+    monkeypatch.setattr(pv, "SCRATCH_CAP", 8 * nf * cap_spectra)
+    assert len(pv._chunks(nch, navr, nf)) >= navr
+    before = pv.LAUNCHES
+    got = pv.welch_dft_cuda(xt, yt, win, nf, 1.0 / navr, **kw)
+    torch.cuda.synchronize()
+    assert pv.LAUNCHES == before + 1
+    for g, o in zip(got, one):
+        assert (g - o).abs().max().item() <= 1e-6 * o.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -159,28 +159,147 @@ def test_bluestein_tables_give_the_dft(nwins):
     np.testing.assert_allclose(X, ref, atol=1e-12 * np.abs(ref).max())
 
 
-def _emulate_kernel_e(x, y, win, nfreq, norm, navr, nwins, hop, detrend):
-    """Kernel E's algorithm in torch on the CPU, from its own operands:
-    the float64 prologue, ``pre`` (window times chirp), the float32
-    ``filt``/``post`` tables, detrend on load, two complex64 FFTs."""
+@pytest.mark.parametrize("nwins,M", [(1, 16), (2, 16), (3, 16), (5, 16),
+                                     (12, 32), (16, 16), (100, 256),
+                                     (1964, 4096), (2047, 4096),
+                                     (4871, 8192), (5452, 8192),
+                                     (8191, 16384)])
+def test_reduced_bluestein_tables_give_the_kept_bins(nwins, M):
+    """Kernel E's plan: M from the nfreq = nwins // 2 + 1 kept bins (8192,
+    not 16384, at the heat-pulse nwins 4871), and on the reduced tables
+    (filter taps for -(nwins - 1) < m < nfreq only) Bluestein's algorithm
+    gives those bins of the DFT in float64 to 1e-12 of max."""
+    K = nwins // 2 + 1
+    assert pv.bluestein_size(nwins, K) == M
+    v = np.random.default_rng(nwins).standard_normal(nwins)
+    ref = np.fft.fft(v)[:K]
+    if nwins == M:          # a power of two >= 16: no Bluestein
+        assert pv._device_tables(nwins, K, "cpu")[1] is None
+        return
+    M2, filt, post = pv.bluestein_tables(nwins, K)
+    assert M2 == M and filt.shape == (M,) and post.shape == (K,)
+    a = np.zeros(M, complex)
+    a[:nwins] = v * pv._chirp(nwins)
+    X = post * np.conj(np.fft.fft(np.conj(np.fft.fft(a) * filt)))[:K]
+    np.testing.assert_allclose(X, ref, atol=1e-12 * np.abs(ref).max())
+
+
+def test_transform_size_within_8192_over_the_jax_gate():
+    """Over every nwins that passes the gate of TPU kernel #7 (up to 5452),
+    with the most bins kernel E's domain allows, M <= 8192: the shared
+    memory of two blocks an SM."""
+    worst = 0
+    for nwins in range(1, 5500):
+        nf = nwins // 2 + 1
+        if pv.pallas_welch_applicable(nwins, nf, 1):
+            M = pv.bluestein_size(nwins, nf)
+            assert M & (M - 1) == 0
+            assert M == nwins or M >= max(16, nwins + nf - 1)
+            worst = max(worst, M)
+    assert worst == 8192
+
+
+@pytest.mark.parametrize("nch,navr,nfreq,cap", [
+    (32, 155, 2436, pv.SCRATCH_CAP),     # the heat-pulse call: one chunk
+    (3, 13, 151, 8 * 151 * 4 * 5),       # 5 segments of 4 signals a chunk
+    (3, 13, 151, 8 * 151 * 4 * 13 - 1),  # one segment short of one chunk
+    (5, 7, 10, 8 * 10 * 3),              # channel groups of 2, 1 segment
+    (5, 7, 10, 8 * 10 * 7),              # groups of 5 - 1 = 4 and 1
+    (0, 9, 33, 8 * 33 * 2),              # no channels, 2 segments a chunk
+    (2, 4, 16, 1),                       # below two spectra: the minimum
+])
+def test_chunks_cover_every_segment_once(nch, navr, nfreq, cap):
+    """Kernel E's chunks: every (channel, segment) once, x's spectra of
+    every segment once per channel group, the scratch within the cap (or
+    two spectra where the cap is smaller), chunks of a group in segment
+    order."""
+    chunks = pv._chunks(nch, navr, nfreq, cap)
+    seen = np.zeros((max(nch, 1), navr), int)
+    groups = {}
+    for c0, nc, s0, ns in chunks:
+        assert 8 * nfreq * (1 + nc) * ns <= max(cap, 16 * nfreq)
+        assert ns >= 1 and (nc >= 1) == (nch > 0)
+        assert groups.setdefault((c0, nc), s0) == s0
+        groups[(c0, nc)] = s0 + ns
+        seen[c0:c0 + max(nc, 1), s0:s0 + ns] += 1
+    assert (seen == 1).all()
+    assert all(end == navr for end in groups.values())
+    if cap == pv.SCRATCH_CAP:
+        assert chunks == [(0, nch, 0, navr)]
+
+
+@pytest.mark.parametrize("ncols,ns,nfreq", [
+    (33, 155, 2436),    # the heat-pulse call: one group, 2541 blocks
+    (5, 4096, 1024),    # chip_smoke.py case c: 7 groups
+    (9, 65534, 2),      # case e: one bin tile, 118 groups
+    (4, 13, 151),       # fewer segments than a group's least
+    (1, 1, 1),
+])
+def test_sum_groups_cover_the_segments_and_fill_the_card(ncols, ns, nfreq):
+    """Kernel E's sums pass: groups of at least 16 segments (or all of
+    them) partition the segments, and the blocks number at least 8 an SM
+    on 132 SMs where the segments allow it, and not twice that."""
+    spg = pv._sum_split(ncols, ns, nfreq, 132)
+    groups = -(-ns // spg)
+    assert spg >= 16 and (groups - 1) * spg < ns <= groups * spg
+    blocks = -(-nfreq // 32) * ncols * groups
+    assert blocks >= min(8 * 132, -(-nfreq // 32) * ncols * -(-ns // 16))
+    assert groups == 1 or blocks < 2 * 8 * 132
+
+
+def _emulate_kernel_e(x, y, win, nfreq, norm, navr, nwins, hop, detrend,
+                      cap=None):
+    """Kernel E's plan in torch on the CPU, from its own operands: the
+    float64 prologue, ``pre`` (window times chirp), detrend on load, the
+    transforms at ``M = bluestein_size(nwins, nfreq)`` on the reduced
+    float32 ``filt``/``post`` tables with the filter product in natural
+    order, the kept bins of each chunk of :func:`pv._chunks` in a complex64
+    scratch, and float64 sums over each chunk's segments in order, added
+    to the earlier chunks' sums, in the order of the sums and combine
+    passes (:func:`pv._sum_split`'s groups of segments on 132 SMs)."""
     sig = torch.cat([x[None], y])
-    nt = sig.shape[1]
-    M, filt, post, _ = pv._device_tables(nwins, "cpu")
+    nch, nt = y.shape
+    M, filt, post, _ = pv._device_tables(nwins, nfreq, "cpu")
+    assert M == pv.bluestein_size(nwins, nfreq)
     mean, slope = pv._trend(sig, detrend)
     t = torch.arange(nt, dtype=torch.float64) - (nt - 1) / 2.0
     d = (sig - (mean[:, None] + slope[:, None] * t).to(torch.float32))
     pre = pv._pre_table(np.asarray(win, np.float64).tobytes(), "cpu")
-    a = d.unfold(-1, nwins, hop)[:, :navr] * pre
-    A = torch.fft.fft(a, n=M, dim=-1)
-    if M == nwins:
-        Z = A[..., :nfreq]
+    frames = d.unfold(-1, nwins, hop)[:, :navr] * pre
+
+    # every item's kept bins (an item's transforms do not depend on the
+    # chunk it is in)
+    A = torch.fft.fft(frames, n=M, dim=-1)
+    if filt is None:
+        kept = A[..., :nfreq]
     else:
-        Z = post[:nfreq] * torch.fft.fft((A * filt).conj(), dim=-1)[
+        kept = post * torch.fft.fft((A * filt).conj(), dim=-1)[
             ..., :nfreq].conj()
-    X, Y = Z[0], Z[1:]
-    Pxy = (Y * X.conj()).sum(1).to(torch.complex128)
-    return ((X.abs() ** 2).sum(0) * norm, (Y.abs() ** 2).sum(1) * norm,
-            Pxy.real * norm, Pxy.imag * norm)
+    assert kept.dtype == torch.complex64
+    acc = torch.zeros((nch + 1, 3, nfreq), dtype=torch.float64)
+    for c0, nc, s0, ns in pv._chunks(nch, navr, nfreq, cap):
+        rows = [0] + list(range(c0 + 1, c0 + nc + 1))
+        spec = kept[rows, s0:s0 + ns].to(torch.complex128)
+        # dft_sums: each group's 8 lanes, every 8th segment in order, the
+        # lanes added in order; dft_combine: the groups in order, then acc
+        spg = pv._sum_split(len(rows) - (c0 > 0), ns, nfreq, 132)
+        chunk = torch.zeros((1 + nc, 3, nfreq), dtype=torch.float64)
+        for g0 in range(0, ns, spg):
+            group = torch.zeros_like(chunk)
+            for lane in range(8):
+                a = torch.zeros_like(chunk)
+                for s in range(g0 + lane, min(ns, g0 + spg), 8):
+                    X, Y = spec[0, s], spec[1:, s]
+                    a[0, 0] += X.abs() ** 2
+                    a[1:, 0] += Y.abs() ** 2
+                    a[1:, 1] += (Y * X.conj()).real
+                    a[1:, 2] += (Y * X.conj()).imag
+                group += a
+            chunk += group
+        cols = rows if c0 == 0 else rows[1:]
+        acc[cols] = (chunk if c0 == 0 else chunk[1:]) + acc[cols]
+    out = acc * norm
+    return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]
 
 
 @pytest.mark.parametrize("nch,nt,nwins,hop,detrend", GEOMETRIES)
@@ -197,6 +316,30 @@ def test_kernel_emulation_matches_plain(nch, nt, nwins, hop, detrend):
     for g, r in zip(got, ref):
         err = (g.double() - r.double()).abs().max() / r.abs().max()
         assert err <= 2e-5
+
+
+@pytest.mark.parametrize("nch,nt,nwins,hop,detrend", GEOMETRIES)
+def test_chunked_kernel_emulation_matches_unchunked(nch, nt, nwins, hop,
+                                                    detrend):
+    """The emulated kernel with a scratch cap of six spectra (one to three
+    segments a chunk, or channel groups of one or two where six do not
+    hold every signal's) against one chunk: the same float64 sums to 1e-12
+    of max (the order of the additions differs), and within 2e-5 of the
+    plain version."""
+    x, y, win = _inputs(nch, nt, nwins, 11)
+    navr = (nt - nwins) // hop + 1
+    nf = nwins // 2 + 1
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    args = (xt, yt, win, nf, 0.5, navr, nwins, hop, detrend)
+    cap = 8 * nf * 2 * 3
+    assert len(pv._chunks(nch, navr, nf, cap)) >= navr // 3
+    got = _emulate_kernel_e(*args, cap=cap)
+    one = _emulate_kernel_e(*args)
+    ref = pv.welch_dft_plain(xt, yt, win, nf, 0.5, navr=navr, nwins=nwins,
+                             hop=hop, detrend_style=detrend)
+    for g, o, r in zip(got, one, ref):
+        assert (g - o).abs().max() <= 1e-12 * o.abs().max()
+        assert (g - r.double()).abs().max() <= 2e-5 * r.abs().max()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
