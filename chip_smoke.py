@@ -29,7 +29,10 @@ own main path inside phase 4.  The paths:
   ``torch.profiler``;
 - the Hilbert demodulation path through ``hilbert_mod.envelope_phase`` at
   the size of bench configuration 4, a 2**24-sample AM signal at fs = 1 MHz
-  (phase 10), after kernel D against its plain version (phase 9); then a
+  (phase 10), after kernel D against its plain version in five cases
+  (phase 9: each timed and traced, beside the four-step chain and the same
+  analytic signal through whole-length cuFFT, with the occupancy and
+  ptxas' report for every row length); then a
   light drive of the analysis tier on the card (``downsample_efficient``
   of 8 channels of 2**22 samples, the blocked IIR; the synthetic Doppler
   chain through ``fftanal``), held against the CPU route;
@@ -230,36 +233,42 @@ def time_ms(fn, reps=5):
     return statistics.median(time_runs(fn, reps))
 
 
-def trace_call(fn, kernel):
+def trace_call(fn, kernel, windows=3):
     """One call of ``fn`` under ``torch.profiler``: its wall (ms, host clock
     to a synchronize), the device's busy time and idle share, the device
     time and the recorded launches of the kernels whose names hold
     ``kernel``, the count of pageable
     host -> device copies, and the top device and host entries (host: the
-    operators' own CPU time)."""
+    operators' own CPU time).  A window in which the profiler recorded no
+    device activity at all (it happened on an H100 to one call of phase 14
+    that launched six device operations) is traced again, up to
+    ``windows`` in all; ``trace_windows`` counts them."""
     import torch
     from pyfft_tpu_torch.utils import profiling
     cuda_t = torch.autograd.DeviceType.CUDA
-    with tempfile.TemporaryDirectory() as logdir, \
-            profiling.trace(logdir) as tr:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev_ms, host_ms, pageable, launches = {}, {}, 0, 0
-    for e in tr.key_averages():
-        if getattr(e, "is_user_annotation", False):
-            continue
-        if e.device_type != cuda_t:
-            host_ms[e.key] = e.self_cpu_time_total / 1e3
-            continue
-        dev_ms[e.key] = e.self_device_time_total / 1e3
-        if kernel in e.key:
-            launches += e.count
-        if "HtoD" in e.key and "Pageable" in e.key:
-            pageable += e.count
-    busy = sum(dev_ms.values())
+    for window in range(1, windows + 1):
+        with tempfile.TemporaryDirectory() as logdir, \
+                profiling.trace(logdir) as tr:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_ms, host_ms, pageable, launches = {}, {}, 0, 0
+        for e in tr.key_averages():
+            if getattr(e, "is_user_annotation", False):
+                continue
+            if e.device_type != cuda_t:
+                host_ms[e.key] = e.self_cpu_time_total / 1e3
+                continue
+            dev_ms[e.key] = e.self_device_time_total / 1e3
+            if kernel in e.key:
+                launches += e.count
+            if "HtoD" in e.key and "Pageable" in e.key:
+                pageable += e.count
+        busy = sum(dev_ms.values())
+        if busy > 0:
+            break
 
     def top(ms):
         return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:6])
@@ -267,7 +276,7 @@ def trace_call(fn, kernel):
                 device_idle_share=1 - busy / wall,
                 kernel_ms=sum(v for k, v in dev_ms.items() if kernel in k),
                 kernel_launches=launches, h2d_pageable=pageable,
-                host_ms=sum(host_ms.values()),
+                host_ms=sum(host_ms.values()), trace_windows=window,
                 top_device_ms=top(dev_ms), top_host_ms=top(host_ms))
 
 
@@ -395,6 +404,14 @@ def am_signal(nt):
     t = np.arange(nt) / FS
     env = 1 + 0.5 * np.sin(2 * np.pi * 500 * t)
     return (env * np.sin(2 * np.pi * 50e3 * t)).astype(np.float32), env, t
+
+
+def fft_analytic(x, h):
+    """The analytic signal of ``x`` through one whole-length ``torch.fft``
+    pair with the mask ``h``: the yardstick of kernel D's four-step chain,
+    never called by the port."""
+    import torch
+    return torch.fft.ifft(torch.fft.fft(x) * h)
 
 
 def hilbert_split(am):
@@ -867,7 +884,14 @@ def main():
     nt4 = 1 << 24
     am4, env4_true, _ = am_signal(nt4)
     rng = np.random.default_rng(SEED + 3)
-    occupancy = {M: hk.blocks_per_sm(M) for M in (16384, 8192)}
+    # resident blocks an SM for every row length the kernel takes
+    occupancy = {M: hk.blocks_per_sm(M)
+                 for M in (1 << e for e in range(4, 15))}
+    emit("hilbert_occupancy", blocks_per_sm=occupancy,
+         ptxas=ptxas_report("hilbert_kernel", named=True))
+    check(occupancy[hk.ROW_DEFAULT] >= 2, f"kernel D holds "
+          f"{occupancy[hk.ROW_DEFAULT]} blocks an SM at M = "
+          f"{hk.ROW_DEFAULT}")
     # config 4 (the main path's split), an odd n1 at full size, a
     # non-power-of-two length, a one-row case, and config 4 split in rows
     # of 16384 (the other candidate for the default split)
@@ -888,26 +912,42 @@ def main():
         del got, ref
         err_z, _ = rel_err(_analytic_factored(x, split),
                            _analytic_factored(x, split, hk.hilbert_plain))
-        ms = time_ms(lambda: hk.hilbert_cuda(A))
+        runs = time_runs(lambda: hk.hilbert_cuda(A),
+                         25 if name.startswith("a_") else 5)
+        ms = statistics.median(runs)
         plain_ms = time_ms(lambda: hk.hilbert_plain(A))
-        # the device chain: outer DFT, kernel D, inverse outer DFT
+        device_ms = trace_launches(lambda: hk.hilbert_cuda(A),
+                                   "hilbert_kernel")[0]
+        # the device chain: outer DFT, kernel D, inverse outer DFT; beside
+        # it the same analytic signal through whole-length cuFFT
         chain_ms = time_ms(lambda: _analytic_factored(x, split))
+        h = torch.zeros(nt, device=dev)
+        h[0] = h[nt // 2] = 1.0
+        h[1:(nt + 1) // 2] = 2.0
+        err_fft, _ = rel_err(_analytic_factored(x, split),
+                             fft_analytic(x.double(), h))
+        fft_chain_ms = time_ms(lambda: fft_analytic(x, h))
         emit("hilbert_vs_plain", case=name, nt=nt, n1=split[0], M=split[1],
              rel_err_rows=err_rows, rel_err_analytic=err_z,
-             max_abs_err=max_abs, tol=HILB_TOL, ms=ms, plain_ms=plain_ms,
-             chain_ms=chain_ms, blocks_per_sm=occupancy.get(split[1]),
-             gb_moved=16 * nt / 1e9)
-        check(err_rows <= HILB_TOL and err_z <= HILB_TOL,
+             rel_err_vs_fft64=err_fft, max_abs_err=max_abs, tol=HILB_TOL,
+             ms=ms, ms_quartiles=statistics.quantiles(runs, n=4),
+             plain_ms=plain_ms, kernel_device_ms=device_ms,
+             chain_ms=chain_ms, fft_chain_ms=fft_chain_ms,
+             chain_beats_fft=chain_ms < fft_chain_ms,
+             blocks_per_sm=occupancy[split[1]], gb_moved=16 * nt / 1e9)
+        check(err_rows <= HILB_TOL and err_z <= HILB_TOL
+              and err_fft <= HILB_TOL,
               f"kernel D {name}: rel err {err_rows} (rows), {err_z} "
-              f"(analytic signal) > {HILB_TOL}")
+              f"(analytic signal), {err_fft} (against float64 cuFFT) > "
+              f"{HILB_TOL}")
         if name.startswith("a_"):
             n1, M = split
             kernels["hilbert"] = dict(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=None,
+                library_ms=None, kernel_device_ms=device_ms,
                 **bound(2 * profiling.fft_flops(M, batch=n1) + 14.0 * nt,
                         16.0 * nt))
-        del A, x
+        del A, x, h
     del cases, sig
     torch.cuda.empty_cache()
 

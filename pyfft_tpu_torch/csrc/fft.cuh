@@ -1,8 +1,7 @@
-// Segment staging and the in-place radix-2 FFT in shared memory, shared by
-// the complex path of kernel B (welch.cu) and kernel D (hilbert.cu), so
-// that they run one FFT and each one's tests also cover the other's
-// transform.  Kernels C, E and B's real path (stft.cu, welch_dft.cu,
-// welch_pair.cu) run fft_reg.cuh's register-radix FFT instead.
+// Segment staging and the in-place radix-2 FFT in shared memory, for the
+// complex path of kernel B (welch.cu), its only user.  Kernels C, D, E and
+// B's real path (stft.cu, hilbert.cu, welch_dft.cu, welch_pair.cu) run
+// fft_reg.cuh's register-radix FFT instead.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,6 +1,6 @@
 // A register-radix Stockham FFT for one block's group of threads: kernel C
-// (stft.cu), kernel B's real path with kernel H (welch_pair.cu) and kernel
-// E (welch_dft.cu) use it.
+// (stft.cu), kernel B's real path with kernel H (welch_pair.cu), kernel E
+// (welch_dft.cu) and kernel D (hilbert.cu) use it.
 //
 // An N-point transform (N = 2^LOGN, 16 <= N <= 16384) is run by T = N/16
 // threads, each holding 16 complex points in registers.  The passes are

@@ -18,12 +18,13 @@ largest power of two that divides ``nfft``, capped at ``ROW_DEFAULT =
 8192``, and ``n1 = nfft / M``.  A length whose power-of-two part is below
 16 has no split.  Bench config 4 (``nfft = 2**24``) gives ``n1 = 2048``,
 ``M = 8192``; ``9 * 2**20`` gives ``n1 = 1152``.  The kernel takes rows of
-up to ``ROW_MAX = 16384`` points (128 KB of complex64 in shared memory,
-one block per SM); rows of 8192 (64 KB) leave three blocks per SM, and
+up to ``ROW_MAX = 16384`` points (139 KB of padded complex64 in shared
+memory, one block per SM); rows of 8192 (68 KB, two blocks per SM)
 measured faster on the card (PERF.md, config 4).
 
 - On CUDA tensors :func:`hilbert_cuda` launches kernel D
-  (``csrc/hilbert.cu``) on complex64 rows.
+  (``csrc/hilbert.cu``, both row transforms on ``csrc/fft_reg.cuh``) on
+  complex64 rows.
 - On CPU tensors :func:`hilbert_plain` runs the same rows through
   ``torch.fft`` in the input's dtype (twiddles from float64).
 

@@ -289,11 +289,18 @@ def test_fftanal_default_takes_kernel_c_on_card(cuda_device, cplx):
 @pytest.mark.parametrize("nfft,max_row", [
     (1 << 12, phk.ROW_MAX), (9 << 10, phk.ROW_MAX), (1 << 20, phk.ROW_MAX),
     (1 << 12, 16), (9 << 10, 64), (3 << 16, phk.ROW_DEFAULT),
-    (1 << 20, phk.ROW_DEFAULT)])
+    (1 << 20, phk.ROW_DEFAULT),
+    # one row length for every log2(M) in 4..14, odd n1 among them; below
+    # M = 2048 a block takes several rows, and n1 leaves some slots empty
+    (5 << 4, phk.ROW_MAX), (5 << 5, phk.ROW_MAX), (7 << 6, phk.ROW_MAX),
+    (3 << 7, phk.ROW_MAX), (9 << 8, phk.ROW_MAX), (1023 << 9, phk.ROW_MAX),
+    (33 << 10, phk.ROW_MAX), (129 << 11, phk.ROW_MAX),
+    (3 << 12, phk.ROW_MAX), (2047 << 13, phk.ROW_MAX),
+    (5 << 14, phk.ROW_MAX)])
 def test_hilbert_kernel_matches_plain_on_card(cuda_device, nfft, max_row):
     """Kernel D vs its plain version in complex128 on the card, on the
     outer spectrum's rows of a random float32 signal: max |diff| / max |ref|
-    <= 1e-5 (float32 radix-2 FFTs of up to 16384 points, float32
+    <= 1e-5 (float32 register-radix FFTs of up to 16384 points, float32
     twiddles from float64).  Then the whole chain against a complex128
     torch.fft analytic signal, same bound."""
     rng = np.random.default_rng(nfft + max_row)
@@ -319,6 +326,24 @@ def test_hilbert_kernel_matches_plain_on_card(cuda_device, nfft, max_row):
     err = ((z.to(torch.complex128) - zref).abs().max()
            / zref.abs().max()).item()
     assert err <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,M", [(130, 16), (3, 1024), (2047, 8192),
+                                  (5, 16384)])
+def test_hilbert_kernel_repeats_its_bits_on_card(cuda_device, n1, M):
+    """Two launches on the same rows give the same bits: every output has
+    one thread and a fixed order of operations."""
+    rng = np.random.default_rng(n1 + M)
+    A = torch.as_tensor(rng.standard_normal((n1, M))
+                        + 1j * rng.standard_normal((n1, M)),
+                        dtype=torch.complex64, device=cuda_device)
+    before = phk.LAUNCHES
+    a = phk.hilbert_cuda(A)
+    b = phk.hilbert_cuda(A)
+    torch.cuda.synchronize()
+    assert phk.LAUNCHES == before + 2
+    assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
 
 
 @pytest.mark.cuda

@@ -11,9 +11,19 @@
   envelope rtol 1e-5; phase, wrapped, within 1e-4 rad where the envelope
   is above 1e-2 of its maximum.
 - On the CPU nothing launches kernel D (``ops.hilbert.LAUNCHES``).
+- Kernel D's plan (``csrc/hilbert.cu`` on ``csrc/fft_reg.cuh``) emulated in
+  float64: the factored twiddles, the rows of a block, ``fftreg``'s passes,
+  the mask by register, 1/M and the conjugations as the spectrum is read
+  back, the second transform and the conjugate twiddle, held
+  to ``hilbert_plain`` in complex128 at 1e-12 of max for every row length
+  16..16384, and the chain through it to scipy and the JAX chain.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
+import scipy.signal
 import torch
 import jax.numpy as jnp
 
@@ -31,6 +41,8 @@ from pyfft_tpu_torch.hilbert import (_analytic_factored, _factored_applies,
                                      analytic_mask, envelope_phase)
 from pyfft_tpu_torch.ops import hilbert as kd
 from pyfft_tpu_torch.config import default_device
+
+from test_torch_stft import _PT, _pad, _radices, _transform
 
 
 @pytest.fixture(autouse=True)
@@ -205,3 +217,153 @@ def test_envelope_phase_mesh_raises():
 def test_hilbert_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kd.hilbert_cuda(torch.zeros(4, 16, dtype=torch.complex64))
+
+
+# --------------------------------------------------------------------------- #
+# Kernel D's plan (csrc/hilbert.cu on csrc/fft_reg.cuh), emulated in float64
+# --------------------------------------------------------------------------- #
+
+_SRC = Path(pt.__file__).resolve().parent / "csrc" / "hilbert.cu"
+
+
+def _const(name):
+    """An ``int`` constant of ``csrc/hilbert.cu``."""
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _SRC.read_text()).group(1))
+
+
+def _block_threads(logm):
+    """``block_threads``: one row's M/16 threads, or several rows up to
+    ``kMinThreads``."""
+    return max((1 << logm) // _PT, _const("kMinThreads"))
+
+
+def _w(e, N):
+    """W_N^e = exp(-2 pi i e / N) in float64 for integer exponents."""
+    return torch.exp(-2j * np.pi * (e % N).to(torch.float64) / N)
+
+
+def _emulate_kernel_d(A):
+    """Kernel D's arithmetic in float64 on rows ``A (n1, M)``: block b's
+    slot s takes row k1 = b*F + s (slots past n1 load zeros and store
+    nothing); thread t's point r is sample t + r*T, twiddled by W_N^(t k1)
+    * W_N^(r T k1); ``fftreg::transform``; thread t's inverse point q is
+    bin t + q*T of the spectrum in shared memory, times the kernel's gain
+    for q over M, conjugated; ``transform`` again; sample t + q*T of the
+    buffer times the twiddle, conjugated, to ``out``.  Unwritten outputs
+    stay NaN."""
+    n1, M = A.shape
+    logm = M.bit_length() - 1
+    N, T = n1 * M, M // _PT
+    F = _block_threads(logm) // T
+    k1 = torch.arange(-(-n1 // F) * F)[:, None, None]     # (blocks*F, 1, 1)
+    active = k1[:, 0, 0] < n1
+    t = torch.arange(T)[:, None]
+    q = torch.arange(_PT)
+    steps = _w(q * T * k1, N)                             # (K, 1, 16)
+    base = _w(t * k1, N)                                  # (K, T, 1)
+    rows = torch.zeros(k1.shape[0], M, dtype=torch.complex128)
+    rows[active] = A.to(torch.complex128)
+    n = t + q * T                                         # (T, 16)
+    v = rows[:, n] * (base * steps)
+    spec = _transform(v, logm)[..., _pad(n)]
+    # the gains by q alone: 2 below q = 8, 0 above; 1 at q = 0 and 8 where
+    # t = 0 in row 0 (bins 0 and N/2)
+    edge = (t == 0) & (k1 == 0)
+    h = torch.where(edge & (q % (_PT // 2) == 0), 1.0,
+                    torch.where(q < _PT // 2, 2.0, 0.0)) / M
+    z = (_transform((spec * h).conj(), logm)[..., _pad(n)]
+         * (base * steps)).conj()
+    out = torch.full((n1, M), complex(np.nan, np.nan),
+                     dtype=torch.complex128)
+    out[:, n.reshape(-1)] = z[active].reshape(n1, -1)
+    return out
+
+
+@pytest.mark.parametrize("logn", range(4, 15))
+def test_last_pass_writes_each_thread_the_next_first_pass_points(logn):
+    """``fftreg``'s last pass (radix R, spanning Ns = N/R) writes thread
+    t's register b*R + r to bin t + T*(b + r*16/R): the 16 registers of a
+    thread are bins t + q*T, the first-pass points of another transform,
+    so a handoff in registers would be a renaming of them (measured
+    slower, PERF.md, kernel D).  Checked on the store indices and on the
+    emulated spectrum against the DFT at 1e-12."""
+    N = 1 << logn
+    T = N // _PT
+    R = _radices(logn)[-1]
+    Ns = N // R
+    t = torch.arange(T)[:, None, None]
+    b = torch.arange(_PT // R)[:, None]
+    r = torch.arange(R)
+    j = t + b * T                                    # butterflies, < Ns
+    d = (j // Ns) * Ns * R + j % Ns + r * Ns          # store_pass
+    assert bool((j < Ns).all())
+    assert torch.equal(d, t + T * (b + r * (_PT // R)))
+    q = (b + r * (_PT // R)).reshape(-1)
+    assert sorted(q.tolist()) == list(range(_PT))
+    rng = np.random.default_rng(logn)
+    z = torch.as_tensor(rng.standard_normal((2, N))
+                        + 1j * rng.standard_normal((2, N)))
+    tt = torch.arange(T)[:, None]
+    buf = _transform(z[:, tt + torch.arange(_PT) * T], logn)
+    ref = torch.fft.fft(z)[:, tt + q * T]
+    got = buf[:, _pad(tt + q * T)]
+    assert (got - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+@pytest.mark.parametrize("logm,n1", [
+    (4, 1), (4, 3), (4, 130), (5, 5), (6, 7), (6, 33), (7, 3), (8, 9),
+    (9, 3), (10, 5), (11, 3), (12, 5), (13, 3), (13, 1), (14, 3), (14, 1),
+])
+def test_kernel_d_plan_matches_plain(logm, n1):
+    """The float64 emulation of kernel D's plan against ``hilbert_plain``
+    in complex128: 1e-12 of max, every output written once."""
+    M = 1 << logm
+    rng = np.random.default_rng(n1 * M)
+    A = torch.as_tensor(rng.standard_normal((n1, M))
+                        + 1j * rng.standard_normal((n1, M)))
+    got = _emulate_kernel_d(A)
+    assert not got.isnan().any()
+    ref = kd.hilbert_plain(A)
+    assert (got - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+@pytest.mark.parametrize("logm", range(4, 15))
+def test_kernel_d_rows_per_block(logm):
+    """One row per M/16 threads; below M = 2048 a block of 128 threads
+    takes 128/(M/16) rows, from M = 2048 one row a block of M/16 threads;
+    a block's shared memory (pad(M) float2 a row, and 16 twiddle steps a
+    row) fits the card's 227 KB, and its threads the 1024 of a block."""
+    M = 1 << logm
+    T = M // _PT
+    threads = _block_threads(logm)
+    F = threads // T
+    assert F * T == threads <= 1024
+    assert F == (1 if M >= 2048 else 2048 // M)
+    assert F * (_pad(M) + _PT) * 8 <= 232448
+    assert _const("kMinLogM") == 4 and _const("kMaxLogM") == 14
+    assert (1 << _const("kMinLogM"), 1 << _const("kMaxLogM")) == (
+        kd.ROW_MIN, kd.ROW_MAX)
+
+
+@pytest.mark.parametrize("nfft,max_row", [
+    (1 << 12, kd.ROW_DEFAULT), (9 << 10, 64), (48, kd.ROW_MAX),
+    (3 << 14, kd.ROW_MAX), (1 << 14, 16),
+])
+def test_kernel_d_plan_chain_matches_scipy_and_jax(nfft, max_row):
+    """The chain (outer torch.fft, the emulated kernel D, inverse outer
+    torch.fft) in float64 against ``scipy.signal.hilbert`` at 1e-12 of max,
+    and against the JAX ``_analytic_factored`` (float32 tables) at the JAX
+    test's own 3e-6 of max."""
+    rng = np.random.default_rng(nfft + max_row)
+    x = rng.standard_normal(nfft)
+    z = _analytic_factored(torch.as_tensor(x),
+                           split=kd.row_split(nfft, max_row),
+                           rows=_emulate_kernel_d).numpy()
+    want = scipy.signal.hilbert(x)
+    assert np.abs(z - want).max() <= 1e-12 * np.abs(want).max()
+    zr, zi = j_factored(jnp.asarray(x.astype(np.float32)), nfft=nfft,
+                        factors=balanced3_factorization(nfft),
+                        prec="highest")
+    jz = np.asarray(zr) + 1j * np.asarray(zi)
+    assert np.abs(z - jz).max() <= 3e-6 * np.abs(jz).max()
