@@ -67,7 +67,16 @@ own main path inside phase 4.  The paths:
   config-0 signals into the interleaved layout with a zero tail (phase
   17), after kernel I against its plain version (timed 25 times, traced
   once) and against kernel A: without ``sub`` and de-interleaved, its
-  output must be kernel A's bit for bit.
+  output must be kernel A's bit for bit;
+- the Doppler IQ path, ``fft_pwelch(..., fft_backend='pallas')`` on a
+  complex reference and 8 complex channels of 2**24 samples at 1 MHz
+  sharing a tone at -37 kHz, each channel lagging the reference by a known
+  phase (phase 19: two-sided line, coherence and cross-phase, against the
+  ``'xla'`` route), after kernel B on complex signals (``csrc/welch.cu``)
+  against its plain version on those signals at nwins 4096 (each channel
+  also at 1:10 and 1:1000 of the reference) and at nwins 2048 with the
+  129-tap band-pass (phase 18: timed 10 times, traced once, with the
+  occupancy and ptxas' report at nwins 2048 and 4096).
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
@@ -103,6 +112,7 @@ FIR_T_TOL = 1e-5    # kernel I: the same
 PARSEVAL_TOL = 0.01  # config 1: |sum(Pxx) df / var(x) - 1|
 LAG_PHASE_TOL = 1e-2  # the pair route: cross-phase at the line vs the lag
 LAG = 3             # the pair route: y is x delayed by LAG samples
+IQ_F0 = -37e3       # the Doppler IQ signals: a tone at a negative frequency
 STFT_TOL = 2e-5     # kernel C: the same, per case
 HILB_TOL = 1e-5     # kernel D: the same, on its rows and on the analytic signal
 PHASE_TOL = 1e-4    # config 4: wrapped phase (rad) where env > 1e-2 max
@@ -343,6 +353,33 @@ def signals(nt, dev):
     return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
 
 
+def iq_phases():
+    """The lag of each IQ channel behind the reference (rad)."""
+    import numpy as np
+    return 0.3 + 0.7 * np.arange(NCH)
+
+
+def iq_signals(nt, dev):
+    """The Doppler IQ signals: a complex64 reference x (nt,) and NCH
+    channels y (NCH, nt) at FS, each the tone exp(2 pi i IQ_F0 t) under
+    independent complex noise of unit power, channel c lagging x by
+    ``iq_phases()[c]``; made on the card from SEED."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    t = torch.arange(nt, device=dev, dtype=torch.float64) / FS
+    tone = torch.polar(torch.ones_like(t), 2 * np.pi * IQ_F0 * t)
+    lag = torch.polar(torch.ones(NCH, dtype=torch.float64, device=dev),
+                      -torch.as_tensor(iq_phases(), device=dev))
+    x = (tone + torch.randn(nt, dtype=torch.complex128, device=dev,
+                            generator=gen)).to(torch.complex64)
+    y = torch.empty((NCH, nt), dtype=torch.complex64, device=dev)
+    for c in range(NCH):
+        y[c] = tone * lag[c] + torch.randn(nt, dtype=torch.complex128,
+                                           device=dev, generator=gen)
+    return x, y
+
+
 def chirp(nt):
     """bench.py's config-2 chirp: f_inst from 1 kHz to 200 kHz over nt
     samples at FS, as float32 (NumPy), with f_inst."""
@@ -484,6 +521,7 @@ def main():
         """Every kernel's launch count to 0, before a main path."""
         fir.LAUNCHES = welch.LAUNCHES = stft.LAUNCHES = hk.LAUNCHES = 0
         welch_v1.LAUNCHES = welch.PACKED_LAUNCHES = fir.FIR_T_LAUNCHES = 0
+        welch.COMPLEX_LAUNCHES = 0
         probe.LAUNCHES.update(colsum=0, chain=0)
 
     def bound(flops, nbytes, unit="fp32"):
@@ -1708,7 +1746,161 @@ def main():
           "output")
     check(tail_main == 0 and mean_dev <= 1e-5,
           f"kernel I: tail {tail_main} non-zero, channel means {mean_dev}")
-    del out17, sub17
+    del out17, sub17, x0, y0, x5, y5
+    torch.cuda.empty_cache()
+
+    # ---- phase 18: kernel B on complex signals against its plain version - #
+    nt18 = 1 << 24
+    xq, yq = iq_signals(nt18, dev)
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ18 = {f"{n}_K{K}": lib.pyfft_welch_resident(n, K) / sms
+             for n in (2048, 4096) for K in (1, 129)}
+    emit("welch_complex_occupancy", blocks_per_sm=occ18,
+         ptxas={k: v for k, v in ptxas_report("welch_kernel",
+                                               named=True).items()
+                if "ILi11E" in k or "ILi12E" in k})
+    check(min(occ18.values()) >= 1, f"kernel B complex occupancy {occ18}")
+    # (a) config 5's IQ geometry, the main path's; (b) config 0's with its
+    # band-pass
+    for case, nwins, taps in (("a_config5_iq", 4096, None),
+                              ("b_config0_iq_taps", 2048, taps0)):
+        plan = seg.plan_segments(nt18, nwins=nwins, windowoverlap=0.5)
+        win = np.hanning(nwins + 1)[:-1]
+        norm = 1.0 / plan.navr
+        kw = dict(navr=plan.navr, nwins=nwins, hop=plan.hop, taps=taps,
+                  detrend_style=1)
+
+        def cplx_kernel(y=yq):
+            return welch.welch_cuda(xq, y, win, nwins, norm, **kw)
+
+        def cplx_plain(y=yq):
+            return welch.welch_plain(xq, y, win, nwins, norm, **kw)
+        got, ref = cplx_kernel(), cplx_plain()
+        errs = {"Pxx": rel_err(got[0], ref[0]),
+                "Pyy": rel_err(got[1], ref[1]),
+                "Pxy": rel_err(torch.complex(got[2], got[3]),
+                               torch.complex(ref[2], ref[3]))}
+        chan = {"1_to_1": channel_errs(got, ref)}
+        del got, ref
+        if case.startswith("a_"):
+            # every channel 10 and 1000 times quieter than the reference
+            for g in (10, 1000):
+                yg = yq / g
+                chan[f"1_to_{g}"] = channel_errs(cplx_kernel(yg),
+                                                 cplx_plain(yg))
+                del yg
+        runs = {"ms": time_runs(cplx_kernel, 10),
+                "plain_ms": time_runs(cplx_plain, 5)}
+        ms, plain_ms = (statistics.median(runs[k]) for k in ("ms", "plain_ms"))
+        max_abs = max(e * sc for e, sc in errs.values())
+        prof18 = trace_call(cplx_kernel, "welch_kernel")
+        b18 = bound((fir_ops(nt18, len(taps), 2 * (1 + NCH)) if taps is not
+                     None else 0)
+                    + profiling.welch_complex_flops(plan.navr, nwins, NCH),
+                    8.0 * (1 + NCH) * nt18 + 12.0 * (1 + NCH) * nwins)
+        emit("welch_complex_vs_plain", case=case, nch=NCH, nt=nt18,
+             nwins=nwins, navr=plan.navr,
+             ntaps=0 if taps is None else len(taps),
+             rel_err={k: e for k, (e, _) in errs.items()},
+             channel_rel_err=chan, max_abs_err=max_abs, tol=WELCH_TOL,
+             ms=ms, plain_ms=plain_ms,
+             quartiles_ms={k: statistics.quantiles(v, n=4)
+                           for k, v in runs.items()},
+             kernel_device_ms=prof18["kernel_ms"], profile=prof18, **b18)
+        for name, (e, _) in errs.items():
+            check(e <= WELCH_TOL, f"kernel B complex {case} {name}: rel err "
+                  f"{e} > {WELCH_TOL}")
+        for ratio, per in chan.items():
+            for name, e in per.items():
+                check(max(e) <= WELCH_TOL, f"kernel B complex {case} {ratio} "
+                      f"{name} per channel: {e} > {WELCH_TOL}")
+        check(prof18["kernel_ms"] > 0, "the profiler saw no welch_kernel")
+        check(prof18["h2d_pageable"] == 0,
+              f"kernel B complex {case}: {prof18['h2d_pageable']} pageable "
+              f"host -> device copies in a call after the first")
+        if case.startswith("a_"):
+            kernels["welch_complex"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=None, kernel_device_ms=prof18["kernel_ms"], **b18)
+
+    # ---- tenth main path: fft_pwelch on the Doppler IQ signals ----------- #
+    tvec18 = np.arange(nt18) / FS
+    args19 = dict(tbounds=[tvec18[1], tvec18[-2]], tper=4096.5 / FS,
+                  plotit=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    f19, Pxy19, Pxx19, Pyy19, _, _, info19 = pt.fft_pwelch(
+        tvec18, xq, yq, fft_backend="pallas", **args19)
+    wall19 = time.perf_counter() - t0
+    check(welch.COMPLEX_LAUNCHES == 1 and welch.LAUNCHES == 0
+          and stft.LAUNCHES == 0,
+          f"fft_pwelch on IQ launched kernel B complex "
+          f"{welch.COMPLEX_LAUNCHES} times, real {welch.LAUNCHES}, kernel C "
+          f"{stft.LAUNCHES}")
+    launches["welch_complex"] = welch.COMPLEX_LAUNCHES
+    # where a call's time goes: one more call under torch.profiler, its
+    # wall split by the ranges fft_pwelch marks (host clock): the host ->
+    # device step, the device core (means, kernel B, the small copies
+    # back, which synchronize), and the host float64 finalization after it
+    stages19 = ("fft_pwelch.h2d", "fft_pwelch.device_core")
+    with tempfile.TemporaryDirectory() as logdir, \
+            profiling.trace(logdir) as tr19:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.fft_pwelch(tvec18, xq, yq, fft_backend="pallas", **args19)
+        torch.cuda.synchronize()
+        wall19t = time.perf_counter() - t0
+    host19, dev19 = {}, {}
+    for e in tr19.key_averages():
+        if e.key in stages19 and e.device_type != cuda_t:
+            host19[e.key] = e.cpu_time_total / 1e6
+        elif e.device_type == cuda_t and e.key not in stages19 \
+                and not getattr(e, "is_user_annotation", False):
+            dev19[e.key] = e.self_device_time_total / 1e6
+    check(set(host19) == set(stages19), f"profiler ranges {host19}")
+    busy19 = sum(dev19.values())
+    prof19 = dict(
+        wall_s=wall19t, device_busy_s=busy19,
+        device_idle_share=1 - busy19 / wall19t,
+        wall_s_split={
+            "h2d": host19[stages19[0]], "device_core": host19[stages19[1]],
+            "kernel_b_complex_device": sum(
+                v for k, v in dev19.items() if "welch_kernel" in k),
+            "host_finalization": wall19t - sum(host19.values())},
+        top_device_ms={k[:80]: v * 1e3 for k, v in sorted(
+            dev19.items(), key=lambda kv: -kv[1])[:5]})
+    t0 = time.perf_counter()
+    _, Pxy19x, Pxx19x, Pyy19x, _, _, _ = pt.fft_pwelch(
+        tvec18, xq, yq, fft_backend="xla", **args19)
+    wall19x = time.perf_counter() - t0
+    df19 = FS / info19.nwins
+    ipk19 = np.argmax(np.abs(Pyy19), axis=0)               # per channel
+    fpk19 = f19[ipk19]
+    chans = np.arange(NCH)
+    coh19 = (np.abs(Pxy19[ipk19, chans]) ** 2
+             / (np.abs(Pxx19[ipk19]) * np.abs(Pyy19[ipk19, chans])))
+    phi19 = np.angle(Pxy19[ipk19, chans])
+    dphi19 = np.abs(np.angle(np.exp(1j * (phi19 + iq_phases()))))
+    errs19 = {"Pxx": rel_err(Pxx19, Pxx19x)[0],
+              "Pyy": rel_err(Pyy19, Pyy19x)[0],
+              "Pxy": rel_err(Pxy19, Pxy19x)[0]}
+    finite19 = all(np.all(np.isfinite(a)) for a in (Pxx19, Pyy19, Pxy19))
+    emit("main_doppler_iq", nt=nt18, nch=NCH, nwins=info19.nwins,
+         navr=info19.Navr, two_sided=bool(f19[0] < 0), peak_hz=fpk19.tolist(),
+         coh2_at_peak=coh19.tolist(), phase_at_peak=phi19.tolist(),
+         phase_want=(-iq_phases()).tolist(), phase_tol=LAG_PHASE_TOL,
+         rel_err_vs_xla=errs19, tol=WELCH_TOL, finite=finite19,
+         wall_s_pallas=wall19, wall_s_xla=wall19x, profile=prof19)
+    check(f19[0] < 0 < f19[-1], "fft_pwelch on IQ is not two-sided")
+    check(finite19, "non-finite fft_pwelch IQ outputs")
+    check(np.all(np.abs(fpk19 - IQ_F0) <= df19), f"IQ Pyy peaks at {fpk19}")
+    check(np.all(coh19 > 0.9), f"IQ |Cxy|^2 at the peak {coh19}")
+    check(np.all(dphi19 <= LAG_PHASE_TOL),
+          f"IQ phase at the peak {phi19} against {-iq_phases()}")
+    for k, e in errs19.items():
+        check(e <= WELCH_TOL, f"IQ fft_pwelch {k}: pallas vs xla {e}")
+    del xq, yq
     torch.cuda.empty_cache()
 
     for name, n in launches.items():
@@ -1721,6 +1913,8 @@ def main():
                            "pyfft_tpu/ops/pallas_welch.py:447"),
               "welch_packed": ("pyfft_tpu_torch/csrc/welch_pair.cu",
                                "pyfft_tpu/ops/pallas_welch3.py:455"),
+              "welch_complex": ("pyfft_tpu_torch/csrc/welch.cu",
+                                "pyfft_tpu/ops/pallas_welch3.py:455"),
               "fir_t": ("pyfft_tpu_torch/csrc/fir.cu",
                         "pyfft_tpu/ops/pallas_fir.py:451"),
               "stft": ("pyfft_tpu_torch/csrc/stft.cu",

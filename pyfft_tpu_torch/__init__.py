@@ -44,8 +44,7 @@ entries)
 ``welch_pallas_fused``,            ``csrc/welch_dft.cu``
 ``welch_power_pallas``)
 ``utils/profiling.py`` (probes)    ``ops/probe.py`` + ``csrc/probe.cu``
-(the FFT of B complex, D)          ``csrc/fft.cuh``
-(the FFT of B real, C, E, H)       ``csrc/fft_reg.cuh``
+(the FFT of B, C, D, E, H)         ``csrc/fft_reg.cuh``
 (the partial sums of B, F-H)       ``csrc/reduce.cuh``
 ``ops/transform.py``               ``ops/transform.py`` (``torch.fft``)
 (kernel build and load)            ``ops/_build.py``

@@ -1,6 +1,7 @@
-// A register-radix Stockham FFT for one block's group of threads: kernel C
-// (stft.cu), kernel B's real path with kernel H (welch_pair.cu), kernel E
-// (welch_dft.cu) and kernel D (hilbert.cu) use it.
+// A register-radix Stockham FFT for one block's group of threads, the
+// port's one FFT engine: kernels B (welch.cu for complex signals,
+// welch_pair.cu for real ones, with kernel H), C (stft.cu), D (hilbert.cu)
+// and E (welch_dft.cu) use it.
 //
 // An N-point transform (N = 2^LOGN, 16 <= N <= 16384) is run by T = N/16
 // threads, each holding 16 complex points in registers.  The passes are

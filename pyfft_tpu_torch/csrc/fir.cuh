@@ -1,12 +1,14 @@
 // Causal FIR inner loops shared by kernels A and I (fir.cu), the filter
 // stage of kernel B on real signals and of kernel H (welch_pair.cu), and
-// that of kernel B on complex signals (fft.cuh::load_component), so that
-// kernel A's tests also cover the others' filter.
+// that of kernel B on complex signals (welch.cu), so that kernel A's tests
+// also cover the others' filter.
 //
 // fir_point makes one output with one shared-memory load of a sample and
-// one of a tap per FMA; fir4 makes 4 consecutive outputs with the same
-// products in the same order from 16-byte loads, one of 4 taps and one of
-// 4 samples (per sequence) per 16 FMAs.  Both give the same bits.
+// one of a tap per FMA; fir_pair makes one output of each of two sequences
+// with one load of each tap for both; fir4 makes 4 consecutive outputs
+// with the same products in the same order from 16-byte loads, one of 4
+// taps and one of 4 samples (per sequence) per 16 FMAs.  All three give
+// the same bits.
 #pragma once
 
 // Largest filter either kernel takes (the JAX package's PALLAS_FIR_MAX_TAPS).
@@ -25,6 +27,22 @@ __device__ __forceinline__ float fir_point(const float* s, const float* taps,
 #pragma unroll 8
     for (int k = 0; k < K; ++k) acc = fmaf(taps[k], p[-k], acc);
     return acc;
+}
+
+// fir_point of two sequences at once: the same products in the same order
+// per output, one load of each tap for both.
+__device__ __forceinline__ float2 fir_pair(const float* a, const float* b,
+                                           const float* taps, int K) {
+    const float* p = a + (K - 1);
+    const float* q = b + (K - 1);
+    float sa = 0.f, sb = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+        const float w = taps[k];
+        sa = fmaf(w, p[-k], sa);
+        sb = fmaf(w, q[-k], sb);
+    }
+    return make_float2(sa, sb);
 }
 
 // o[i] += t * w[E + i], i < 4.

@@ -1,5 +1,5 @@
 // The fixed-order sum of per-block partials that ends kernels B and H
-// (welch.cu), F and G (probe.cu): each block writes its
+// (welch.cu, welch_pair.cu), F and G (probe.cu): each block writes its
 // own slice of `part`, and this pass adds the slices in slice order in
 // float64, so a result does not depend on the order in which blocks ran.
 #pragma once

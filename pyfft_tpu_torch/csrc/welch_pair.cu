@@ -7,7 +7,7 @@
 // lane-packing modes (vmask, paircross with _pair_reduce), reached from
 // welch_auto_packed and welch_pair_packed; and pyfft_tpu/ops/
 // pallas_welch.py::_factored_kernel (the v2 kernel, e.g. nwins 2048 every
-// 128).  Complex (two-sided) signals stay on welch.cu.
+// 128).  Complex (two-sided) signals take welch.cu.
 //
 // For segment s (start s*hop, s < navr) of each real signal it forms
 //   v[n] = (fir(sig)[start+n] - mean) * win[n],   n < N = nwins,
@@ -64,7 +64,7 @@
 // - at N = 16384 the ring (256 KB) and the FFT buffer (139 KB) do not fit
 //   in the 227 KB of a block together: there each unit filters its whole
 //   span (N + K - 1 staged samples a sequence) straight into the first
-//   pass's registers with fir_pair, as kernel B did before.
+//   pass's registers with fir.cuh's fir_pair.
 // - per-bin sums in float64 registers (8 bin pairs j, N - j a thread; bin
 //   N/2 in shared memory, owned by thread 0); each item writes its
 //   group's partials in the (ngroups, nch + 1, 3, nbins) layout, which
@@ -157,22 +157,6 @@ __device__ __forceinline__ void stage(float* raw, const float* sig,
         const long long i = first + j;
         raw[j] = i >= 0 ? __ldg(sig + i) : 0.f;
     }
-}
-
-// fir_point (fir.cuh) of two sequences at once: the same products in the
-// same order per output, one load of each tap for both.
-__device__ __forceinline__ float2 fir_pair(const float* a, const float* b,
-                                           const float* taps, int K) {
-    const float* p = a + (K - 1);
-    const float* q = b + (K - 1);
-    float sa = 0.f, sb = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-        const float w = taps[k];
-        sa = fmaf(w, p[-k], sa);
-        sb = fmaf(w, q[-k], sb);
-    }
-    return make_float2(sa, sb);
 }
 
 // One bin's terms from z = Z_k and w = Z_{N-k} of scaled sequences, with

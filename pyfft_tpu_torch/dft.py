@@ -8,9 +8,10 @@ versions carry py2 syntax and a missing ``bitrev`` (``dft.py:200,219,268``);
 these are complete, working ports of the same algorithms.
 
 None of this is the production path: the port's transforms are
-``torch.fft`` and the radix-2 shared-memory FFT of its CUDA kernels
-(``csrc/fft.cuh``, the algorithm of :func:`fft_basic`) — this module
-documents the math they implement.
+``torch.fft`` and the register-radix Stockham FFT of its CUDA kernels
+(``csrc/fft_reg.cuh``: radix-16 passes of in-register radix-2 butterflies,
+the Cooley-Tukey split of :func:`fft_basic` without the bit reversal in
+memory) — this module documents the math they implement.
 """
 from __future__ import annotations
 

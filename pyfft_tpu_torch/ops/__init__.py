@@ -6,8 +6,9 @@
   feeder (``fir_transpose_pallas``), and its plain version;
 - :mod:`pyfft_tpu_torch.ops.welch` — kernel B, fused FIR + detrend +
   Welch cross-powers (``csrc/welch_pair.cu`` for real signals,
-  ``csrc/welch.cu`` for complex ones), and its plain version; the real
-  kernel launched with ``welch_cuda(..., packed=True)`` is kernel H;
+  ``csrc/welch.cu`` for complex ones, both on ``csrc/fft_reg.cuh``), and
+  its plain version; the real kernel launched with ``welch_cuda(...,
+  packed=True)`` is kernel H;
 - :mod:`pyfft_tpu_torch.ops.welch_packed` — the entries of kernel H, the
   packed Welch of one signal or one pair, two real sequences per complex
   FFT, and the JAX package's gates for them;

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "pyfft_fir_t": ([_P, _P, _LL, _I, _P, _I, _P, _P, _LL, _LL, _P], _I),
     "pyfft_welch": ([_P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _D, _P], _I),
+    "pyfft_welch_resident": ([_I, _I], _I),
     "pyfft_welch_pair": ([_P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _I, _D, _P], _I),
     "pyfft_welch_pair_resident": ([_I, _I], _I),

@@ -11,11 +11,13 @@ global mean of each *filtered* signal removed (``detrend_style`` 1) or not
 scaled by ``norm``, with ``Pxy = Y conj(X)``.  The caller applies the
 one-sided bin doubling.
 
-- On CUDA tensors :func:`welch_cuda` launches kernel B: real signals
-  ``csrc/welch_pair.cu`` (x paired with each channel in one complex FFT on
-  ``csrc/fft_reg.cuh``, each sequence scaled by its own power of two, each
-  span filtered once per block), complex ones ``csrc/welch.cu``.  The
-  filtered signal never reaches device memory.  The per-signal means of
+- On CUDA tensors :func:`welch_cuda` launches kernel B, both of its
+  kernels on ``csrc/fft_reg.cuh``: real signals ``csrc/welch_pair.cu`` (x
+  paired with each channel in one complex FFT, each sequence scaled by its
+  own power of two, each span filtered once per block), complex ones
+  ``csrc/welch.cu`` (one segment a transform, x's and a channel's
+  segment transformed side by side in one block).  The filtered signal
+  never reaches device memory.  The per-signal means of
   the filtered signals come from the unfiltered sums by the moment
   identity ``sum(conv(x, t)[:nt]) = sum_k t_k (S - T_k)`` (``T_k`` the sum
   of the last ``k`` samples), an O(C*K) float64 prologue in plain torch, as
@@ -28,8 +30,9 @@ one-sided bin doubling.
   :mod:`pyfft_tpu_torch.ops.welch_packed`): the same real kernel for one
   real signal (two of its segments per complex FFT) or one real pair.
 
-``LAUNCHES`` counts the launches of kernel B, ``PACKED_LAUNCHES`` those of
-kernel H.  The entries compute on the port's device
+``LAUNCHES`` counts the launches of kernel B on real signals,
+``COMPLEX_LAUNCHES`` those on complex signals and ``PACKED_LAUNCHES``
+those of kernel H.  The entries compute on the port's device
 (:func:`pyfft_tpu_torch.config.resolve_device`): ``device=``, else the
 first tensor argument's, else the package default, else the card.
 
@@ -38,7 +41,8 @@ limits do not apply): ``nwins`` a power of two in 16..16384, any hop in
 1..nwins, any ``nt >= (navr-1)*hop + nwins``, any ``nch >= 0`` (up to
 65534), up to 1024 taps, ``detrend_style`` in {0, 1}, real float32 or
 complex64 (two-sided) signals.  Its shared memory is at most 209 KB a
-block (real, ``nwins`` 8192 with 1024 taps) and 205 KB (complex).
+block (real, ``nwins`` 8192 with 1024 taps) and 217 KB (complex, the same
+geometry).
 
 Kernel B also stands for TPU kernel #8, the v2 factored kernel
 (``pallas_welch.py::_factored_kernel``), which the JAX package's
@@ -62,12 +66,14 @@ from .fir import fir_plain, PALLAS_FIR_MAX_TAPS
 
 __all__ = ["welch_fir_pallas3", "welch_fir_pallas_fused",
            "welch_pallas3_twosided", "pallas_welch2_applicable",
-           "welch_plain", "welch_cuda", "LAUNCHES", "PACKED_LAUNCHES"]
+           "welch_plain", "welch_cuda", "LAUNCHES", "COMPLEX_LAUNCHES",
+           "PACKED_LAUNCHES"]
 
 _MIN_NWINS = 16
 _MAX_NWINS = 16384
 
 LAUNCHES = 0
+COMPLEX_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 
 
@@ -158,15 +164,15 @@ _SUM_BLOCK = 4096
 
 
 def _row_sums(rows: torch.Tensor) -> torch.Tensor:
-    """float64 sums of the rows of ``rows (R, nt)``: float32 sums of
-    blocks of 4096 samples (a view of ``rows``), then float64 over the
-    blocks.  ``sum(dtype=float64)`` would cast a float64 copy of the whole
-    signal first."""
+    """float64 (complex128 for complex rows) sums of the rows of ``rows
+    (R, nt)``: float32 sums of blocks of 4096 samples (a view of
+    ``rows``), then float64 over the blocks.  ``sum(dtype=float64)`` would
+    cast a float64 copy of the whole signal first."""
+    wide = torch.complex128 if rows.is_complex() else torch.float64
     m = rows.shape[-1] - rows.shape[-1] % _SUM_BLOCK
     blocks = rows[:, :m].reshape(rows.shape[0], m // _SUM_BLOCK,
                                  _SUM_BLOCK).sum(-1)
-    return (blocks.to(torch.float64).sum(-1)
-            + rows[:, m:].to(torch.float64).sum(-1))
+    return blocks.to(wide).sum(-1) + rows[:, m:].to(wide).sum(-1)
 
 
 @lru_cache(maxsize=32)
@@ -183,9 +189,10 @@ def _window(data: bytes, device: str) -> torch.Tensor:
 
 
 def _moment_means(rows: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """float64 means of ``conv(row, taps, 'full')[:nt]`` for each row of
-    ``rows (R, nt)`` (any strides), from the unfiltered sums.  A single tap
-    is a scalar factor; longer taps are cached on the rows' device."""
+    """float64 (complex128) means of ``conv(row, taps, 'full')[:nt]`` for
+    each row of real (complex) ``rows (R, nt)`` (any strides), from the
+    unfiltered sums.  A single tap is a scalar factor; longer taps are
+    cached on the rows' device."""
     nt = rows.shape[-1]
     K = taps.size
     S = _row_sums(rows)
@@ -193,10 +200,10 @@ def _moment_means(rows: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
         return S * float(taps.flat[0]) / nt
     t = _device_copy(np.ascontiguousarray(taps, np.float64).tobytes(),
                      "float64", str(rows.device))
-    tail = rows[:, max(0, nt - (K - 1)):].flip(-1).to(torch.float64)
+    tail = rows[:, max(0, nt - (K - 1)):].flip(-1).to(S.dtype)
     tail = torch.nn.functional.pad(tail, (0, K - 1 - tail.shape[-1]))
     T = torch.cat([torch.zeros_like(S)[:, None], torch.cumsum(tail, -1)], -1)
-    return ((S[:, None] - T) @ t) / nt
+    return ((S[:, None] - T) @ t.to(S.dtype)) / nt
 
 
 def _means(x, y, taps, detrend_style, cplx):
@@ -207,25 +214,15 @@ def _means(x, y, taps, detrend_style, cplx):
         return torch.zeros(n, dtype=torch.float32, device=x.device)
     parts = []
     for sig in (x[None], y):
-        if cplx:
-            parts.append(torch.stack([_moment_means(sig.real, taps),
-                                      _moment_means(sig.imag, taps)],
-                                     dim=-1).reshape(-1))
-        else:
-            parts.append(_moment_means(sig, taps))
+        m = _moment_means(sig, taps)
+        parts.append(torch.view_as_real(m).reshape(-1) if cplx else m)
     return torch.cat(parts).to(torch.float32)
 
 
-def _groups(navr: int, ncols: int, device) -> int:
-    """Segment groups: about four blocks per SM over all columns."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(navr, -(-4 * sms // ncols)))
-
-
 def _pair_groups(navr: int, nch: int, resident: int) -> int:
-    """Segment groups of ``csrc/welch_pair.cu``: at most one item (group x
-    channel) per block the card holds at once, at most one unit (FFT) a
-    group; a unit is a segment, or two at ``nch = 0``."""
+    """Segment groups of ``csrc/welch_pair.cu`` and ``csrc/welch.cu``: at
+    most one item (group x channel) per block the card holds at once, at
+    most one unit a group; a unit is a segment, or two at ``nch = 0``."""
     nunits = navr if nch else -(-navr // 2)
     return max(1, min(nunits, resident // max(nch, 1)))
 
@@ -247,7 +244,7 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
     and ``y (nch, nt)`` with unit stride along time, both float32 (one-sided
     use) or both complex64 (two-sided), on one CUDA device; ``packed``
     takes float32 and ``nch <= 1``.  Raises outside the kernel's domain."""
-    global LAUNCHES, PACKED_LAUNCHES
+    global LAUNCHES, COMPLEX_LAUNCHES, PACKED_LAUNCHES
     if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
             and x.is_cuda and y.device == x.device):
         raise ValueError("welch_cuda needs x and y on one CUDA device")
@@ -290,41 +287,35 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if cplx:
-            ngroups = _groups(navr, nch + 1, dev)
-            part = torch.empty((ngroups, nch + 1, 3, nfreq),
-                               dtype=torch.float64, device=dev)
-            out = torch.empty((nch + 1, 3, nfreq), dtype=torch.float32,
-                              device=dev)
-            xf, yf = torch.view_as_real(x), torch.view_as_real(y)
-            rc = lib.pyfft_welch(
-                xf.data_ptr(), yf.data_ptr() if nch else xf.data_ptr(),
-                yf.stride(0) if nch else 0, t.data_ptr(), K,
-                means.data_ptr(), w.data_ptr(), tw.data_ptr(),
-                part.data_ptr(), out.data_ptr(), nch, int(nwins), int(hop),
-                int(navr), ngroups, int(nfreq), float(norm), stream)
-            _build.check(rc, "welch kernel")
-        else:
-            # bins 0..nwins/2, the rest mirrored
-            nbins = min(nfreq, nwins // 2 + 1)
-            resident = lib.pyfft_welch_pair_resident(int(nwins), K)
-            if resident < 0:
-                _build.check(-resident, "welch_pair kernel")
-            ngroups = _pair_groups(int(navr), nch, resident)
-            part = torch.empty((ngroups, nch + 1, 3, nbins),
-                               dtype=torch.float64, device=dev)
-            out = torch.empty((nch + 1, 3, nbins), dtype=torch.float32,
-                              device=dev)
-            rc = lib.pyfft_welch_pair(
-                x.data_ptr(), y.data_ptr() if nch else x.data_ptr(),
-                y.stride(0) if nch else 0, t.data_ptr(), K, means.data_ptr(),
-                w.data_ptr(), tw.data_ptr(), part.data_ptr(), out.data_ptr(),
-                nch, int(nwins), int(hop), int(navr), ngroups, nbins,
-                float(norm), stream)
-            _build.check(rc, "welch_pair kernel")
+        # complex signals: every bin; real ones: bins 0..nwins/2, the rest
+        # mirrored
+        name, entry, resident = (
+            ("welch", lib.pyfft_welch, lib.pyfft_welch_resident) if cplx
+            else ("welch_pair", lib.pyfft_welch_pair,
+                  lib.pyfft_welch_pair_resident))
+        nbins = nfreq if cplx else min(nfreq, nwins // 2 + 1)
+        cap = resident(int(nwins), K)
+        if cap < 0:
+            _build.check(-cap, f"{name} kernel")
+        ngroups = _pair_groups(int(navr), nch, cap)
+        part = torch.empty((ngroups, nch + 1, 3, nbins), dtype=torch.float64,
+                           device=dev)
+        out = torch.empty((nch + 1, 3, nbins), dtype=torch.float32,
+                          device=dev)
+        # row stride in floats (a complex64 element is two)
+        y_stride = y.stride(0) * (2 if cplx else 1) if nch else 0
+        rc = entry(x.data_ptr(), y.data_ptr() if nch else x.data_ptr(),
+                   y_stride, t.data_ptr(), K, means.data_ptr(), w.data_ptr(),
+                   tw.data_ptr(), part.data_ptr(), out.data_ptr(), nch,
+                   int(nwins), int(hop), int(navr), ngroups, nbins,
+                   float(norm), stream)
+        _build.check(rc, f"{name} kernel")
+        if not cplx:
             out = _mirror(out, int(nwins), int(nfreq))
     if packed:
         PACKED_LAUNCHES += 1
+    elif cplx:
+        COMPLEX_LAUNCHES += 1
     else:
         LAUNCHES += 1
     return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]

@@ -15,8 +15,9 @@ The TPU's packing (parts of the segment range as virtual channels, to fill
 card two real sequences share one complex FFT: segments ``2p`` and
 ``2p+1`` of the signal (auto), or segment ``s`` of ``x`` and of ``y``
 (pair), split again by the symmetry ``Z_{N-k}``: half the FFTs of kernel B
-for the same inputs.  Kernel H is kernel B's packed modes
-(``csrc/welch.cu``), launched by the one wrapper of both.
+for the same inputs.  Kernel H is kernel B's real kernel
+(``csrc/welch_pair.cu``) in its packed modes, launched by the one wrapper
+of both.
 
 - On CUDA tensors ``ops.welch.welch_cuda(..., packed=True)`` launches
   kernel H, counted by ``ops.welch.PACKED_LAUNCHES``.

@@ -9,7 +9,8 @@ Counterpart of :mod:`pyfft_tpu.utils.profiling`:
   where a card is present), written as a Chrome trace;
 - FLOP models of the hot chains (:func:`fft_flops`, :func:`welch_flops`,
   :func:`fir_flops`, copies of the JAX package's), of the packed Welch
-  (:func:`welch_packed_flops`) and of the four-step analytic-signal chain
+  (:func:`welch_packed_flops`), of the two-sided Welch of complex signals
+  (:func:`welch_complex_flops`) and of the four-step analytic-signal chain
   (:func:`analytic_flops_bytes`);
 - :func:`device_peaks` (book peaks of the card, keyed on its name as
   ``nvidia-smi`` or ``torch.cuda.get_device_name`` gives it, with the
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 __all__ = ["stage", "stage_log", "trace", "fft_flops", "welch_flops",
-           "welch_packed_flops", "fir_flops", "analytic_flops_bytes",
+           "welch_complex_flops", "welch_packed_flops", "fir_flops", "analytic_flops_bytes",
            "device_peaks", "peak_tflops", "bound_ms", "roofline", "measure", "report",
            "measure_pipeline_overlap"]
 
@@ -95,6 +96,14 @@ def welch_flops(navr, nwins, nch=1):
     per_seg = (nwins                      # window multiply
                + fft_flops(nwins, real=True)
                + 4 * (nwins // 2 + 1))    # |X|^2 + cross-power terms
+    return navr * per_seg * (1 + nch)
+
+
+def welch_complex_flops(navr, nwins, nch=1):
+    """Two-sided Welch of complex signals: window multiply of both parts +
+    complex FFT + power + accumulate over all ``nwins`` bins per segment,
+    for the reference and ``nch`` channels."""
+    per_seg = 2 * nwins + fft_flops(nwins) + 4 * nwins
     return navr * per_seg * (1 + nch)
 
 

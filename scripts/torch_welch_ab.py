@@ -1,42 +1,62 @@
-"""Time kernel B and kernel H of one pyfft_tpu_torch tree on a CUDA card.
+"""Time kernel B and kernel H of one pyfft_tpu_torch tree on a CUDA card,
+and fingerprint what they compute.
 
-    python3 scripts/torch_welch_ab.py TREE [--split]
+    python3 scripts/torch_welch_ab.py TREE [--split] [--complex]
 
 TREE is a directory that holds a ``pyfft_tpu_torch`` package (``.`` for
 this checkout, or an unpacked ``git archive`` of another commit).  The
-script builds that tree's kernels and times ``ops.welch.welch_cuda`` at
-bench configs 0 (8 × 2^25, nwins 2048, hop 1024, 129 taps), 5 (8 × 2^24,
-nwins 4096, no taps), 1 (one 2^24 signal, nwins 4096, ``packed=True``) and
-the v2 geometry (8 × 2^22, nwins 2048 every 128, 129 taps): the median of
-10 calls by CUDA events after a warm-up, in ms.  With ``--split`` it also
-times the means prologue (``welch._means``) by CUDA events and the host's
-enqueue time of the call and of the prologue (host clock from a
-synchronized card to the return, median of 10).  It prints one JSON line.
+script builds that tree's kernels and times ``ops.welch.welch_cuda``.
 
-To compare two commits, run both trees in one call on one card, in turns:
-parent, change, change, parent.
+Without ``--complex``, on real signals at bench configs 0 (8 × 2^25,
+nwins 2048, hop 1024, 129 taps), 5 (8 × 2^24, nwins 4096, no taps), 1 (one
+2^24 signal, nwins 4096, ``packed=True``) and the v2 geometry (8 × 2^22,
+nwins 2048 every 128, 129 taps): per case the median of 10 calls by CUDA
+events after a warm-up, in ms, and ``<case>_sha256``, a fingerprint of
+the output bytes.  With ``--split`` it also times the means prologue
+(``welch._means``) by CUDA events and the host's enqueue time of the call
+and of the prologue (host clock from a synchronized card to the return,
+median of 10).
+
+With ``--complex``, on chip_smoke.py's Doppler IQ signals (a complex
+reference and 8 complex channels of 2^24 samples, ``iq_signals``) at
+phase 18's shapes: ``a_config5_iq`` (nwins 4096, hop 2048, no taps) and
+``b_config0_iq_taps`` (nwins 2048, hop 1024, the 129-tap band-pass), and
+``c_config0_iq`` (b without taps).  Per
+case: the median and quartiles of 10 calls (``ms``, ``q``), the median
+of 5 of the means prologue (``means_ms``) and of the plain version
+(``plain_ms``), the device time a launch of the
+kernels whose names hold ``welch_kernel`` from one ``torch.profiler``
+trace of five calls (``device_ms``), max |kernel - plain| / max |plain|
+over the outputs (``rel_err``) and the fingerprint (``sha256``); then the
+tree's blocks an SM at nwins 2048 and 4096 where the tree reports them,
+and ptxas' report of its ``welch_kernel`` instantiations.
+
+It prints one JSON line, with the card's ``nvidia-smi`` name and power
+limit.  To compare two commits, run both trees in one call on one card,
+in turns: parent, change, change, parent.
 """
+import hashlib
+import importlib.util
 import json
 import os
 import statistics
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 
-def main():
-    tree = os.path.abspath(sys.argv[1])
-    split = "--split" in sys.argv[2:]
-    sys.path.insert(0, tree)
-    import pyfft_tpu_torch as pt
-    from pyfft_tpu_torch.ops import _build, welch
-    if not pt.__file__.startswith(tree):
-        raise RuntimeError(f"pyfft_tpu_torch imported from {pt.__file__}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device")
-    _build.library()
+def fingerprint(outputs):
+    """First 16 hex digits of the sha256 of the outputs' bytes."""
+    h = hashlib.sha256()
+    for o in outputs:
+        h.update(o.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def real_cases(res, pt, welch, split):
     dev = torch.device("cuda")
     nt = 1 << 25
     rng = np.random.default_rng(0)
@@ -73,7 +93,6 @@ def main():
         torch.cuda.synchronize()
         return statistics.median(out)
 
-    res = {"tree": sys.argv[1], "device": torch.cuda.get_device_name(0)}
     for name, n, nch, nwins, hop, tp, packed in (
             ("config0", nt, 8, 2048, 1024, taps, False),
             ("v2", 1 << 22, 8, 2048, 128, taps, False),
@@ -89,6 +108,7 @@ def main():
             return welch.welch_cuda(xs, ys, win, nwins // 2 + 1, 1.0 / navr,
                                     **kw)
         res[name] = events_ms(call)
+        res[name + "_sha256"] = fingerprint(call())
         if split:
             taps64 = np.ones(1) if tp is None else np.asarray(tp, np.float64)
 
@@ -97,6 +117,73 @@ def main():
             res[name + "_means"] = events_ms(means)
             res[name + "_enqueue"] = enqueue_ms(call)
             res[name + "_means_enqueue"] = enqueue_ms(means)
+
+
+def complex_cases(res, pt, welch, _build, smoke):
+    dev = torch.device("cuda")
+    nt = 1 << 24
+    x, y = smoke.iq_signals(nt, dev)
+    taps = pt.filters.firwin(129, [0.05, 0.45], pass_zero=False)
+    for name, nwins, tp in (("a_config5_iq", 4096, None),
+                            ("b_config0_iq_taps", 2048, taps),
+                            ("c_config0_iq", 2048, None)):
+        hop = nwins // 2
+        navr = (nt - nwins) // hop + 1
+        win = np.hanning(nwins + 1)[:-1]
+        kw = dict(navr=navr, nwins=nwins, hop=hop, taps=tp, detrend_style=1)
+
+        def call():
+            return welch.welch_cuda(x, y, win, nwins, 1.0 / navr, **kw)
+
+        def plain():
+            return welch.welch_plain(x, y, win, nwins, 1.0 / navr, **kw)
+        got, ref = call(), plain()
+        err = max(smoke.rel_err(torch.complex(got[2], got[3]),
+                                torch.complex(ref[2], ref[3]))[0],
+                  *(smoke.rel_err(g, r)[0] for g, r in zip(got[:2], ref[:2])))
+        del ref
+        runs = smoke.time_runs(call, 10)
+        taps64 = np.ones(1) if tp is None else np.asarray(tp, np.float64)
+        res[name] = dict(
+            navr=navr, ms=statistics.median(runs),
+            q=statistics.quantiles(runs, n=4),
+            means_ms=smoke.time_ms(lambda: welch._means(x, y, taps64, 1,
+                                                        True)),
+            plain_ms=smoke.time_ms(plain),
+            device_ms=smoke.trace_launches(call, "welch_kernel")[0],
+            rel_err=err, sha256=fingerprint(got))
+        del got
+        torch.cuda.empty_cache()
+    lib = _build.library()
+    resident = getattr(lib, "pyfft_welch_resident", None)
+    if resident is not None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        res["blocks_per_sm"] = {n: resident(n, 1) / sms for n in (2048, 4096)}
+    res["ptxas"] = smoke.ptxas_report("welch_kernel", named=True)
+
+
+def main():
+    tree = os.path.abspath(sys.argv[1])
+    flags = sys.argv[2:]
+    sys.path.insert(0, tree)
+    # chip_smoke.py's helpers, from this checkout whatever TREE is
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import pyfft_tpu_torch as pt
+    from pyfft_tpu_torch.ops import _build, welch
+    if not pt.__file__.startswith(tree):
+        raise RuntimeError(f"pyfft_tpu_torch imported from {pt.__file__}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    _build.library()
+    res = {"tree": sys.argv[1], "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": smoke.smi_query("name,power.limit")}
+    if "--complex" in flags:
+        complex_cases(res, pt, welch, _build, smoke)
+    else:
+        real_cases(res, pt, welch, "--split" in flags)
     print(json.dumps(res), flush=True)
 
 

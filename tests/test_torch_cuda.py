@@ -77,6 +77,19 @@ def test_fir_and_fir_t_kernels_agree_bit_for_bit_on_card(cuda_device, nch,
     assert torch.equal(a, i)
 
 
+def _welch_complex_sizes():
+    """Complex cases at every power of two 16..16384: an odd navr (5 or 7),
+    three channels up to 4096 and one above, no taps at even log2 N, 33 at
+    odd, detrend at all but 2048."""
+    out = []
+    for logn in range(4, 15):
+        n = 1 << logn
+        navr = 5 if logn % 2 else 7
+        out.append((3 if n <= 4096 else 1, n + (n // 2) * (navr - 1) + 3, n,
+                    n // 2, 33 if logn % 2 else 0, int(logn != 11), True))
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nch,nt,nwins,hop,ntaps,detrend,cplx", [
     (3, 1 << 15, 2048, 1024, 129, 1, False),
@@ -89,12 +102,21 @@ def test_fir_and_fir_t_kernels_agree_bit_for_bit_on_card(cuda_device, nch,
     (1, 1 << 14, 2048, 1, 33, 1, False),         # hop 1 at N 2048
     (3, 1 << 16, 16384, 4096, 1024, 0, False),   # no ring, K 1024
     (0, 5 << 14, 16384, 16384, 129, 1, False),   # no ring, nch 0, lone
+    *_welch_complex_sizes(),
+    (0, 4096 + 16 * 8, 4096, 16, 129, 1, True),  # nch 0, navr 9: lone
+    (20, 1 << 13, 512, 256, 33, 0, True),        # nch 20
+    (1, 16 + 40, 16, 1, 5, 1, True),             # hop 1, navr 41
+    (2, 1024 + 60, 1024, 1, 1, 1, True),         # hop 1, no taps
+    (1, 1 << 16, 16384, 16384, 1024, 1, True),   # A then B, K 1024
+    (0, 5 << 14, 16384, 16384, 1, 0, True),      # A then B, nch 0, lone
+    (3, 3 << 14, 16384, 8192, 129, 1, True),     # A then B, 5 segments
 ])
 def test_welch_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins, hop,
                                             ntaps, detrend, cplx):
     """Kernel B vs its plain version in float64 on the card: max |diff| /
     max |ref| <= 2e-5 per output (float32 FFT, float64 sums).  Real signals
-    take csrc/welch_pair.cu, complex ones csrc/welch.cu."""
+    take csrc/welch_pair.cu (counted by ``LAUNCHES``), complex ones
+    csrc/welch.cu (``COMPLEX_LAUNCHES``)."""
     rng = np.random.default_rng(nt + nch)
     dt = torch.complex64 if cplx else torch.float32
     x = rng.standard_normal(nt) + 0.3
@@ -110,9 +132,10 @@ def test_welch_kernel_matches_plain_on_card(cuda_device, nch, nt, nwins, hop,
     nf = nwins if cplx else nwins // 2
     kw = dict(navr=navr, nwins=nwins, hop=hop, taps=taps,
               detrend_style=detrend)
-    before = pw.LAUNCHES
+    before = pw.LAUNCHES, pw.COMPLEX_LAUNCHES
     got = pw.welch_cuda(xt, yt, win, nf, 1.0 / navr, **kw)
-    assert pw.LAUNCHES == before + 1
+    assert (pw.LAUNCHES, pw.COMPLEX_LAUNCHES) == (
+        before[0] + (not cplx), before[1] + cplx)
     wide = torch.complex128 if cplx else torch.float64
     ref = pw.welch_plain(xt.to(wide), yt.to(wide), win, nf, 1.0 / navr, **kw)
     for g, r in zip(got, ref):
@@ -156,6 +179,111 @@ def test_welch_kernel_holds_each_channel_to_its_own_max_on_card(
         assert err(got[1][c], ref[1][c]) <= 2e-5
         assert err(torch.complex(got[2][c], got[3][c]),
                    torch.complex(ref[2][c], ref[3][c])) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntaps", [0, 129])
+@pytest.mark.parametrize("nwins", [4096, 16384])
+def test_welch_complex_kernel_holds_each_channel_to_its_own_max_on_card(
+        cuda_device, nwins, ntaps):
+    """Complex channels at 1, 1/10, 1/1000 and 1/10^6 of their coherent
+    part's amplitude beside a complex reference: each output of each
+    channel (Pyy, and Pxy as a complex row) and Pxx within 2e-5 of its own
+    max |ref| (a complex sequence fills its transform alone)."""
+    rng = np.random.default_rng(37 + ntaps)
+    nt, hop = 8 * nwins, nwins // 2
+    x = rng.standard_normal(nt) + 1j * rng.standard_normal(nt) + 0.2
+    y = 0.5 * x + (rng.standard_normal((4, nt))
+                   + 1j * rng.standard_normal((4, nt)))
+    y /= np.array([1.0, 1e1, 1e3, 1e6])[:, None]
+    xt = torch.as_tensor(x, dtype=torch.complex64, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=torch.complex64, device=cuda_device)
+    taps = rng.standard_normal(ntaps) / ntaps if ntaps else None
+    navr = (nt - nwins) // hop + 1
+    win = np.hanning(nwins + 1)[:-1]
+    kw = dict(navr=navr, nwins=nwins, hop=hop, taps=taps, detrend_style=1)
+    got = pw.welch_cuda(xt, yt, win, nwins, 1.0 / navr, **kw)
+    ref = pw.welch_plain(xt.to(torch.complex128), yt.to(torch.complex128),
+                         win, nwins, 1.0 / navr, **kw)
+
+    def err(g, r):
+        return ((g.to(r.dtype) - r).abs().max() / r.abs().max()).item()
+
+    assert err(got[0], ref[0]) <= 2e-5
+    for c in range(4):
+        assert err(got[1][c], ref[1][c]) <= 2e-5
+        assert err(torch.complex(got[2][c], got[3][c]),
+                   torch.complex(ref[2][c], ref[3][c])) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,nt,nwins,hop,ntaps", [
+    (8, 1 << 16, 2048, 1024, 129), (0, 5 << 12, 4096, 2048, 0),
+    (2, 1 << 16, 16384, 8192, 5)])
+def test_welch_complex_kernel_repeats_its_bits_on_card(cuda_device, nch, nt,
+                                                       nwins, hop, ntaps):
+    """The same complex call twice gives the same bits: the sums run in a
+    fixed order whatever the order the blocks ran in."""
+    rng = np.random.default_rng(nt + nch)
+    x = rng.standard_normal(nt) + 1j * rng.standard_normal(nt)
+    y = rng.standard_normal((nch, nt)) + 1j * rng.standard_normal((nch, nt))
+    xt = torch.as_tensor(x, dtype=torch.complex64, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=torch.complex64, device=cuda_device)
+    taps = rng.standard_normal(ntaps) / ntaps if ntaps else None
+    navr = (nt - nwins) // hop + 1
+    kw = dict(navr=navr, nwins=nwins, hop=hop, taps=taps, detrend_style=1)
+    win = np.hanning(nwins + 1)[:-1]
+    a = pw.welch_cuda(xt, yt, win, nwins, 1.0 / navr, **kw)
+    b = pw.welch_cuda(xt, yt, win, nwins, 1.0 / navr, **kw)
+    for g, h in zip(a, b):
+        assert torch.equal(g, h)
+
+
+def _welch_real_fingerprints(device):
+    """sha256 (first 16 hex digits) of the float32 outputs of kernel B on
+    real signals (config-0-like: 3 channels, nwins 2048, 129 taps; nwins
+    16384 without the ring) and of kernel H (auto and pair), on seeded
+    inputs."""
+    import hashlib
+    rng = np.random.default_rng(5)
+    nt = 1 << 16
+    x = torch.as_tensor(rng.standard_normal(nt) + 0.3, dtype=torch.float32,
+                        device=device)
+    y = torch.as_tensor(rng.standard_normal((3, nt)), dtype=torch.float32,
+                        device=device)
+    taps = rng.standard_normal(129) / 129
+    out = {}
+    for name, ys, nwins, hop, tp, packed in (
+            ("b_2048", y, 2048, 1024, taps, False),
+            ("b_16384", y, 16384, 8192, taps[:33], False),
+            ("h_auto", y[:0], 4096, 2048, None, True),
+            ("h_pair", y[:1], 2048, 1024, taps, True)):
+        navr = (nt - nwins) // hop + 1
+        got = pw.welch_cuda(x, ys, np.hanning(nwins + 1)[:-1],
+                            nwins // 2 + 1, 1.0 / navr, navr=navr,
+                            nwins=nwins, hop=hop, taps=tp, detrend_style=1,
+                            packed=packed)
+        h = hashlib.sha256()
+        for g in got:
+            h.update(g.cpu().numpy().tobytes())
+        out[name] = h.hexdigest()[:16]
+    return out
+
+
+# csrc/welch_pair.cu's outputs before the complex path moved to
+# fft_reg.cuh (fir_pair moved to fir.cuh, nothing else changed), on an
+# NVIDIA H100 80GB HBM3
+_WELCH_REAL_FINGERPRINTS = {"b_2048": "62fb9ad16cf2434a",
+                            "b_16384": "a86c36379b267bd9",
+                            "h_auto": "82b120c12b0998d5",
+                            "h_pair": "0fcb7fceb3ff5bae"}
+
+
+@pytest.mark.cuda
+def test_welch_real_kernel_keeps_its_bits_on_card(cuda_device):
+    """Kernel B on real signals and kernel H give the bits they gave before
+    the complex path's redesign."""
+    assert _welch_real_fingerprints(cuda_device) == _WELCH_REAL_FINGERPRINTS
 
 
 def _stft_sizes():

@@ -60,6 +60,17 @@ def test_welch_flops_match_jax(navr, nwins, nch):
         navr, nwins, nch)
 
 
+@pytest.mark.parametrize("navr,nwins,nch", [(8191, 4096, 8), (3, 16, 0)])
+def test_welch_complex_flops_count_every_bin(navr, nwins, nch):
+    """The two-sided count: per signal and segment the window on both
+    parts, the unhalved complex FFT and 4 flops a bin over all nwins bins;
+    the one-sided real count's FFT is half of it."""
+    fft = prof.fft_flops(nwins)
+    assert prof.welch_complex_flops(navr, nwins, nch) == \
+        navr * (1 + nch) * (6 * nwins + fft)
+    assert fft == 2 * prof.fft_flops(nwins, real=True)
+
+
 @pytest.mark.parametrize("method", ["direct", "overlap-save"])
 @pytest.mark.parametrize("nt,ntaps,nch", [(1 << 25, 129, 9), (1000, 1024, 1)])
 def test_fir_flops_match_jax(method, nt, ntaps, nch):

@@ -11,6 +11,7 @@ import torch
 
 from pyfft_tpu.filters import firwin
 from pyfft_tpu.ops.pallas_welch import welch_fir_pallas_fused as jax_fused
+from pyfft_tpu.ops.pallas_welch3 import pallas_welch3_cplx_applicable
 from pyfft_tpu.ops.pallas_welch3 import welch_pallas3_twosided as jax_twosided
 
 from pyfft_tpu_torch.ops import welch as pw
@@ -100,23 +101,33 @@ def test_plain_float64_matches_oracle(nch, nt, nwins, hop, ntaps, detrend):
                                    rtol=1e-10, atol=1e-10 * scl)
 
 
-def test_twosided_plain_matches_jax_kernel():
-    """Complex two-sided path with a fused real FIR, complex64 on both
-    sides: rtol 2e-5, atol 3e-5 * max."""
-    rng = np.random.default_rng(11)
-    nt, nwins, nov = 1 << 14, 512, 256
+@pytest.mark.parametrize("nchz,ntaps,detrend,nwins,nov", [
+    (2, 97, 1, 512, 256),      # fused real FIR
+    (1, 0, 1, 512, 256),       # one channel, no taps (the fft_pwelch route)
+    (1, 97, 0, 1024, 512),     # no detrend
+    (3, 0, 0, 256, 128),       # three channels
+    (3, 129, 1, 512, 384),     # three channels, 75% overlap, FIR
+])
+def test_twosided_plain_matches_jax_kernel(nchz, ntaps, detrend, nwins, nov):
+    """Complex two-sided path, with and without a fused real FIR, complex64
+    on both sides, inside the JAX kernel's gate: rtol 2e-5, atol 3e-5 *
+    max."""
+    rng = np.random.default_rng(11 + nchz + ntaps)
+    nt = 1 << 14
     navr = (nt - nov) // (nwins - nov)
+    assert pallas_welch3_cplx_applicable(nwins, nov, navr, nchz, detrend)
     z = (rng.standard_normal(nt) + 1j * rng.standard_normal(nt) + 0.3)
-    w = (rng.standard_normal((2, nt)) + 1j * rng.standard_normal((2, nt)))
-    taps = np.asarray(firwin(97, 0.3))
+    w = (rng.standard_normal((nchz, nt))
+         + 1j * rng.standard_normal((nchz, nt)))
+    taps = np.asarray(firwin(ntaps, 0.3)) if ntaps else None
     win = np.hanning(nwins + 1)[:-1]
     kw = dict(navr=navr, nwins=nwins, noverlap=nov, taps=taps,
-              detrend_style=1)
+              detrend_style=detrend)
     J = jax_twosided(z.astype(np.complex64), w.astype(np.complex64), win,
                      1.0 / navr, precision="highest", interpret=True, **kw)
     P = pw.welch_pallas3_twosided(torch.from_numpy(z), torch.from_numpy(w),
                                   win, 1.0 / navr, **kw)
-    assert P[0].shape == (nwins,) and P[1].shape == (2, nwins)
+    assert P[0].shape == (nwins,) and P[1].shape == (nchz, nwins)
     scl = np.max(np.abs(np.asarray(J[0])))
     for p, j in zip(P, J):
         np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=2e-5,
