@@ -76,7 +76,22 @@ own main path inside phase 4.  The paths:
   against its plain version on those signals at nwins 4096 (each channel
   also at 1:10 and 1:1000 of the reference) and at nwins 2048 with the
   129-tap band-pass (phase 18: timed 10 times, traced once, with the
-  occupancy and ptxas' report at nwins 2048 and 4096).
+  occupancy and ptxas' report at nwins 2048 and 4096);
+- the streaming tier: the Doppler IQ signals pushed through
+  ``StreamingWelch(nwins=4096, onesided=False, fft_backend='pallas')`` in
+  blocks of 2**20 over phase 19's span (kernel B on complex signals once a
+  push), against phase 19's batch result (phase 20); config 0 streamed
+  from disk: 8 interleaved int16 channels of 2**25 samples (512 MiB; a
+  shared tone at 97 kHz with a known lag per channel, unit noise, DC
+  offsets 100 to 275 times the noise) written to a temporary file, read
+  by ``ShotLoader``'s C++ reader and ``stream_welch(..., block=2**18,
+  fft_backend='pallas')`` on the card (kernel B on real signals once a
+  push), against the batch ``fft_pwelch(..., 'pallas')`` over the same
+  span, with the wall split by step and one push traced (phase 21); a
+  checkpoint at half that stream, restored and finished, against the
+  uninterrupted result bit for bit (phase 22); ``multitaper_psd``
+  (adaptive) and ``multitaper_csd`` of 2**20 samples and the ``cwt`` of a
+  2**18-sample chirp, against the port's CPU float64 path (phase 23).
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
@@ -138,6 +153,12 @@ CHAIN_ORDER_TOL = 5e-3
 # is up to 4e-4 of the outermost channel's (5% of it)
 HP_TOL = 1e-4
 TAU_DAMP = 0.05     # the outermost of 32 channels at exp(-31*0.05) = 0.21
+STREAM_BLOCK = 1 << 18  # the streamed capture: frames a block of stream_welch
+STREAM_LSB = 16     # the streamed capture: int16 counts per unit of noise
+STREAM_TONE = 2.0   # the streamed capture: the tone's amplitude (noise units)
+DC_TOL = 1e-3       # the streamed capture: bins 0-2, streamed vs batch, over
+                    # the noise floor (the median of Pyy)
+MT_TOL = 1e-4       # multitaper, cwt: card (float32) vs CPU (float64)
 HP_RUNINFO = dict(  # tests/test_heatpulse.py's RUNINFO over a 10 s programme
     fmod=33.0, harms=[1, 2], intno2per=2, overlap=0.5, winfun="hanning",
     fwid=8.0, tbounds=[0.25, 9.75], DutyCycle=0.5, usesegs=False, igch=None,
@@ -484,6 +505,289 @@ def hilbert_split(am):
              "inverse_outer_dft": t4 - t3, "envelope_phase": t5 - t4,
              "d2h": t6 - t5, "total": t6 - t0}
     return steps, (env_h, ph_h)
+
+
+def stream_dc():
+    """Each streamed channel's DC offset in units of its noise: 100 to 275
+    (an ADC's offset, far above the noise)."""
+    import numpy as np
+    return 100.0 + 25.0 * np.arange(NCH)
+
+
+def stream_lags():
+    """The lag of each streamed channel's tone behind channel 0 (rad)."""
+    import numpy as np
+    return 0.6 * np.arange(NCH)
+
+
+def write_shot(path, nt, dev):
+    """The streamed capture: NCH interleaved int16 channels of ``nt``
+    frames at FS, each ``STREAM_LSB`` times (its DC offset + a tone of
+    ``STREAM_TONE`` at 97 kHz lagging channel 0 by ``stream_lags()`` +
+    unit noise), made on the card from SEED in chunks of 2**22 frames."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    dc = torch.as_tensor(stream_dc(), device=dev)[:, None]
+    lag = torch.as_tensor(stream_lags(), device=dev)[:, None]
+    with open(path, "wb") as f:
+        for s in range(0, nt, 1 << 22):
+            n = min(1 << 22, nt - s)
+            t = torch.arange(s, s + n, device=dev, dtype=torch.float64) / FS
+            sig = (dc + STREAM_TONE * torch.sin(2 * np.pi * 97e3 * t - lag)
+                   + torch.randn((NCH, n), generator=gen, device=dev,
+                                 dtype=torch.float64))
+            f.write(torch.round(STREAM_LSB * sig).to(torch.int16).T
+                    .contiguous().cpu().numpy().tobytes())
+
+
+def stream_navrs(nt, block, nwins, hop):
+    """The segments each push of a stream of ``nt`` frames in blocks of
+    ``block`` completes."""
+    carry, out = 0, []
+    for pos in range(0, nt, block):
+        nb = carry + min(block, nt - pos)
+        navr = 0 if nb < nwins else 1 + (nb - nwins) // hop
+        out.append(navr)
+        carry = nb - navr * hop
+    return out
+
+
+def stream_split(path, nt, nwins, dev):
+    """Each step of ``stream_welch`` over the capture at ``path``, timed
+    alone: the loader's reads into a pinned buffer (host clock, every
+    block), and per push (CUDA events, median of 10 after a warm-up) the
+    pinned host -> device copy, kernel B on the centred block, the float64
+    linear sums and a whole ``push``; one push traced; then ``result()``
+    (host clock).  Returns the seconds by step for the whole stream and
+    the trace."""
+    import torch
+    import pyfft_tpu_torch as pt
+    from pyfft_tpu_torch import streaming as pstream
+    nblk = -(-nt // STREAM_BLOCK)
+    buf = torch.empty(NCH * STREAM_BLOCK, dtype=torch.float32,
+                      pin_memory=True)
+    host = buf.view(NCH, STREAM_BLOCK)
+    with pt.ShotLoader(path, NCH, "int16") as ld:
+        t0 = time.perf_counter()
+        for pos in range(0, nt, STREAM_BLOCK):
+            ld.read(pos, STREAM_BLOCK, out=host.numpy())
+        loader_s = time.perf_counter() - t0
+        sw = pt.StreamingWelch(nwins=nwins, fs=FS, nch=NCH,
+                               fft_backend="pallas", device=dev)
+        blk = torch.from_numpy(ld.read(0, STREAM_BLOCK + sw.noverlap)).to(dev)
+    navr = 1 + (blk.shape[1] - nwins) // sw.hop
+    sig = torch.cat([blk[:1], blk])
+    span = (navr - 1) * sw.hop + nwins
+    sigc = sig[:, :span] - sig[:, :span].mean(-1, keepdim=True)
+    xc, yc = sigc[0].contiguous(), sigc[1:]
+    centred = sw._centred_sums(sw._route(navr, False), navr)
+    win, _ = sw._window(torch.float32)
+    steps = {
+        "h2d": lambda: host.to(dev, non_blocking=True),
+        "kernel_b": lambda: centred(xc, yc),
+        "linear_sums": lambda: pstream._linear_sums(
+            sig, win, navr=navr, nwins=nwins, hop=sw.hop, nfreq=sw.nfreq,
+            onesided=True),
+        "push": lambda: sw.push(blk[0], blk)}
+    ms = {k: time_ms(f, 10) for k, f in steps.items()}
+    prof = trace_call(steps["push"], "welch_pair_kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sw.result()
+    final_s = time.perf_counter() - t0
+    per = {f"{k}_ms_per_push": v for k, v in ms.items()}
+    total = {f"{k}_s": v * nblk / 1e3 for k, v in ms.items()}
+    return dict(loader_s=loader_s, **total, finalization_s=final_s,
+                **per), prof
+
+
+def stream_phases(tmp, dev, reset_counts, launches, nt=1 << 25):
+    """Phases 21-22: config 0 streamed from an int16 file on disk through
+    ``stream_welch`` (the native loader, kernel B on real signals), held
+    against the batch ``fft_pwelch`` over the same span, split by step;
+    then a checkpoint at half the stream, restored and finished, against
+    the uninterrupted result bit for bit."""
+    import numpy as np
+    import torch
+    import pyfft_tpu_torch as pt
+    from pyfft_tpu_torch.ops import stft, welch, welch_v1
+    nwins, hop = 2048, 1024
+    path = tmp / "config0.i16"
+    t0 = time.perf_counter()
+    write_shot(path, nt, dev)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(pt.io.native_available(), "the C++ shot loader did not build")
+    loader_build_s = time.perf_counter() - t0
+
+    # ---- twelfth main path: phase 21, config 0 from disk ----------------- #
+    navrs = stream_navrs(nt, STREAM_BLOCK, nwins, hop)
+    pushes = sum(n > 0 for n in navrs)
+    reset_counts()
+    t0 = time.perf_counter()
+    with pt.ShotLoader(path, NCH, "int16") as ld:
+        native = ld.native
+        check(native and ld.nsamples == nt, f"loader native={ld.native} "
+              f"nsamples={ld.nsamples}")
+        res = pt.io.stream_welch(ld, nwins=nwins, fs=FS, block=STREAM_BLOCK,
+                                 fft_backend="pallas", device=dev)
+    wall = time.perf_counter() - t0
+    check(welch.LAUNCHES == pushes and welch.COMPLEX_LAUNCHES == 0
+          and welch_v1.LAUNCHES == 0 and welch.PACKED_LAUNCHES == 0
+          and stft.LAUNCHES == 0,
+          f"stream_welch launched kernel B {welch.LAUNCHES} times for "
+          f"{pushes} pushes (complex {welch.COMPLEX_LAUNCHES}, E "
+          f"{welch_v1.LAUNCHES}, H {welch.PACKED_LAUNCHES})")
+    launches["welch"] += welch.LAUNCHES
+    launches_b = welch.LAUNCHES
+
+    # the batch fft_pwelch on the card over the same span: the capture
+    # with one frame more at each end, tbounds [t1, t-2]
+    with pt.ShotLoader(path, NCH, "int16") as ld:
+        data = torch.from_numpy(ld.read()).to(dev)
+    padded = torch.nn.functional.pad(data[None], (1, 1), mode="replicate")[0]
+    del data
+    tvec = np.arange(nt + 2) / FS
+    t0 = time.perf_counter()
+    freq, Pxy, Pxx, Pyy, _, _, info = pt.fft_pwelch(
+        tvec, padded[0], padded, tbounds=[tvec[1], tvec[-2]],
+        tper=(nwins + 0.5) / FS, windowoverlap=0.5, detrend_style=1,
+        plotit=False, fft_backend="pallas")
+    wall_batch = time.perf_counter() - t0
+    del padded
+    torch.cuda.empty_cache()
+    check(info.nwins == nwins and res.Navr == info.Navr == sum(navrs),
+          f"navr streamed {res.Navr}, batch {info.Navr}, planned "
+          f"{sum(navrs)}")
+    check(np.allclose(res.freq, freq, rtol=1e-12), "freq differs")
+    errs = {"Pxx": rel_err(res.Pxx, np.real(Pxx))[0],
+            "Pyy": rel_err(res.Pyy, np.real(Pyy).T)[0],
+            "Pxy": rel_err(res.Pxy, Pxy.T)[0]}
+    # bins 0-2 (the offsets' and their leakage's) against the noise floor
+    floor = np.median(res.Pyy, axis=-1)
+    dc_err = float(np.max(np.abs(res.Pyy[:, :3] - np.real(Pyy).T[:, :3])
+                          / floor[:, None]))
+    chans = np.arange(NCH)
+    ipk = np.argmax(res.Pyy, axis=-1)
+    fpk = res.freq[ipk]
+    coh = res.Cxy2[chans, ipk]
+    phi = res.phi_xy[chans, ipk]
+    dphi = np.abs(np.angle(np.exp(1j * (phi + stream_lags()))))
+    split, prof = stream_split(path, nt, nwins, dev)
+    busy = prof["device_busy_ms"] * pushes / 1e3
+    emit("stream_config0", nt=nt, nch=NCH, nwins=nwins, block=STREAM_BLOCK,
+         dtype="int16", file_mb=nt * NCH * 2 / 2 ** 20, write_s=write_s,
+         loader_build_s=loader_build_s, native=native, pushes=len(navrs),
+         launches=launches_b,
+         navr=res.Navr, dc_offsets=stream_dc().tolist(),
+         rel_err_vs_batch=errs, tol=WELCH_TOL, dc_bins_err_over_floor=dc_err,
+         dc_tol=DC_TOL, peak_hz=fpk.tolist(), coh2_at_peak=coh.tolist(),
+         phase_at_peak=phi.tolist(), phase_want=(-stream_lags()).tolist(),
+         phase_tol=LAG_PHASE_TOL, wall_s=wall,
+         samples_per_s=NCH * nt / wall, frames_per_s=nt / wall,
+         wall_s_batch_fft_pwelch=wall_batch, split=split,
+         device_busy_share_est=busy / wall, push_profile=prof)
+    for k, e in errs.items():
+        check(e <= WELCH_TOL, f"streamed config 0 {k}: vs batch {e}")
+    check(dc_err <= DC_TOL, f"streamed config 0 bins 0-2: {dc_err} of the "
+          f"noise floor from the batch")
+    check(np.all(np.abs(fpk - 97e3) <= FS / nwins), f"Pyy peaks at {fpk}")
+    check(np.all(coh > 0.9), f"|Cxy|^2 at the peak {coh}")
+    check(np.all(dphi <= LAG_PHASE_TOL), f"phase at the peak {phi} against "
+          f"{-stream_lags()}")
+    check(prof["h2d_pageable"] == 0, f"a push made {prof['h2d_pageable']} "
+          f"pageable host -> device copies")
+
+    # ---- phase 22: checkpoint at half the stream, restore, finish -------- #
+    half = pushes // 2
+    ckpt = tmp / "welch_ckpt.npz"
+    sw = pt.StreamingWelch(nwins=nwins, fs=FS, nch=NCH, fft_backend="pallas",
+                           device=dev)
+    with pt.ShotLoader(path, NCH, "int16") as ld:
+        for i, blk in enumerate(ld.stream(block=STREAM_BLOCK)):
+            if i == half:
+                t0 = time.perf_counter()
+                sw.checkpoint(str(ckpt))
+                sw = pt.StreamingWelch.restore(str(ckpt), fft_backend="pallas",
+                                               device=dev)
+                ckpt_s = time.perf_counter() - t0
+            blk = torch.from_numpy(blk).to(dev)
+            sw.push(blk[0], blk)
+    res2 = sw.result()
+    same = {k: bool(np.array_equal(getattr(res2, k), getattr(res, k)))
+            for k in ("Pxx", "Pyy", "Pxy", "Cxy2", "phi_xy")}
+    emit("stream_resume", at_push=half, checkpoint_kb=ckpt.stat().st_size
+         / 1024, checkpoint_restore_s=ckpt_s, bit_identical=same,
+         navr=res2.Navr)
+    check(all(same.values()) and res2.Navr == res.Navr,
+          f"resumed stream differs from the uninterrupted one: {same}")
+
+
+def multitaper_wavelet(dev, n=1 << 20, nc=1 << 18):
+    """Phase 23: multitaper_psd (adaptive) and multitaper_csd of ``n``
+    samples and the cwt of an ``nc``-sample chirp on the card (float32),
+    each against the port's CPU float64 path on the same values; the cwt
+    ridge against the chirp's instantaneous frequency."""
+    import numpy as np
+    import torch
+    import pyfft_tpu_torch as pt
+    rng = np.random.default_rng(SEED + 23)
+    t = np.arange(n) / FS
+    x = (np.sin(2 * np.pi * 97e3 * t)
+         + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    y = (0.6 * np.sin(2 * np.pi * 97e3 * t - 0.7)
+         + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    t0 = time.perf_counter()
+    f_c, S_c = pt.multitaper_psd(xd, fs=FS, NW=4, weighting="adaptive")
+    first_s = time.perf_counter() - t0          # the tapers, then cached
+    t0 = time.perf_counter()
+    pt.multitaper_psd(xd, fs=FS, NW=4, weighting="adaptive")
+    psd_s = time.perf_counter() - t0
+    _, S_h = pt.multitaper_psd(x.astype(np.float64), fs=FS, NW=4,
+                               weighting="adaptive", device="cpu")
+    t0 = time.perf_counter()
+    csd_c = pt.multitaper_csd(xd, yd, fs=FS, NW=4)
+    csd_s = time.perf_counter() - t0
+    csd_h = pt.multitaper_csd(x.astype(np.float64), y.astype(np.float64),
+                              fs=FS, NW=4, device="cpu")
+    errs = {"psd_adaptive": rel_err(S_c, S_h)[0]}
+    for k, i in (("csd_Pxy", 1), ("csd_Pxx", 2), ("csd_Pyy", 3)):
+        errs[k] = rel_err(csd_c[i], csd_h[i])[0]
+    ipk = int(np.argmax(np.abs(csd_c[1])))
+    coh, phi = float(csd_c[4][ipk]), float(csd_c[5][ipk])
+
+    tc = np.arange(nc) / FS
+    f_inst = 20e3 + 180e3 * tc / tc[-1]
+    xc = np.sin(2 * np.pi * np.cumsum(f_inst) / FS).astype(np.float32)
+    xcd = torch.from_numpy(xc).to(dev)
+    pt.wavelet.cwt(xcd, dt=1 / FS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W_c, scales, freqs, coi = pt.wavelet.cwt(xcd, dt=1 / FS)
+    cwt_s = time.perf_counter() - t0
+    W_h = pt.wavelet.cwt(xc.astype(np.float64), dt=1 / FS, device="cpu")[0]
+    errs["cwt"] = rel_err(W_c, W_h)[0]
+    del W_h
+    ridge = {}
+    for frac in (0.25, 0.5, 0.75):
+        i = int(frac * nc)
+        fr = float(freqs[int(np.argmax(np.abs(W_c[:, i])))])
+        ridge[str(frac)] = [fr, float(f_inst[i])]
+    emit("multitaper_wavelet", n_mt=n, n_cwt=nc, scales=len(scales),
+         rel_err_vs_cpu_float64=errs, tol=MT_TOL, csd_peak_hz=float(
+             f_c[ipk]), csd_coh2_at_peak=coh, csd_phase_at_peak=phi,
+         cwt_ridge_hz_vs_f_inst=ridge, first_psd_s=first_s,
+         psd_adaptive_s=psd_s, csd_s=csd_s, cwt_s=cwt_s)
+    for k, e in errs.items():
+        check(e <= MT_TOL, f"{k}: card vs CPU {e} > {MT_TOL}")
+    check(abs(f_c[ipk] - 97e3) <= 8 * FS / n and coh > 0.95
+          and abs(phi + 0.7) < 0.05, f"multitaper csd peak {f_c[ipk]} Hz, "
+          f"coh2 {coh}, phase {phi}")
+    for frac, (fr, fi) in ridge.items():
+        check(abs(fr - fi) / fi < 0.15, f"cwt ridge at {frac}: {fr} Hz "
+              f"against {fi}")
 
 
 def main():
@@ -1900,8 +2204,44 @@ def main():
           f"IQ phase at the peak {phi19} against {-iq_phases()}")
     for k, e in errs19.items():
         check(e <= WELCH_TOL, f"IQ fft_pwelch {k}: pallas vs xla {e}")
-    del xq, yq
+    # ---- eleventh main path: the Doppler IQ streamed (phase 20) ---------- #
+    # StreamingWelch over the span phase 19 analyses (tbounds [t1, t-2]),
+    # in blocks of 2**20: kernel B on complex signals once a push
+    xs20, ys20 = xq[1:nt18 - 1], yq[:, 1:nt18 - 1]
+    navrs20 = stream_navrs(xs20.shape[0], 1 << 20, 4096, 2048)
+    reset_counts()
+    t0 = time.perf_counter()
+    sw20 = pt.StreamingWelch(nwins=4096, fs=FS, nch=NCH, windowoverlap=0.5,
+                             onesided=False, fft_backend="pallas",
+                             device=dev)
+    for s0 in range(0, xs20.shape[0], 1 << 20):
+        sw20.push(xs20[s0:s0 + (1 << 20)], ys20[:, s0:s0 + (1 << 20)])
+    res20 = sw20.result()
+    wall20 = time.perf_counter() - t0
+    pushes20 = sum(n > 0 for n in navrs20)
+    check(welch.COMPLEX_LAUNCHES == pushes20 and welch.LAUNCHES == 0
+          and welch_v1.LAUNCHES == 0,
+          f"the IQ stream launched kernel B complex {welch.COMPLEX_LAUNCHES}"
+          f" times for {pushes20} pushes, real {welch.LAUNCHES}, E "
+          f"{welch_v1.LAUNCHES}")
+    launches["welch_complex"] += welch.COMPLEX_LAUNCHES
+    errs20 = {"Pxx": rel_err(res20.Pxx, np.real(Pxx19))[0],
+              "Pyy": rel_err(res20.Pyy, np.real(Pyy19).T)[0],
+              "Pxy": rel_err(res20.Pxy, Pxy19.T)[0]}
+    emit("stream_doppler_iq", nt=int(xs20.shape[0]), nch=NCH, nwins=4096,
+         block=1 << 20, pushes=len(navrs20), launches=welch.COMPLEX_LAUNCHES,
+         navr=res20.Navr, rel_err_vs_batch=errs20, tol=WELCH_TOL,
+         wall_s=wall20, samples_per_s=(1 + NCH) * xs20.shape[0] / wall20)
+    check(res20.Navr == info19.Navr, f"streamed IQ navr {res20.Navr} vs "
+          f"batch {info19.Navr}")
+    for k, e in errs20.items():
+        check(e <= WELCH_TOL, f"streamed IQ {k}: vs batch {e}")
+    del xq, yq, xs20, ys20
     torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        stream_phases(Path(tmp), dev, reset_counts, launches)
+    multitaper_wavelet(dev)
 
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")

@@ -134,6 +134,15 @@ from . import pca
 from .pca import PCA, basic_pca
 from . import heatpulse
 from .heatpulse import HeatPulseFFT
+from . import streaming
+from .streaming import StreamingWelch
+from . import io
+from .io import ShotLoader
+from . import multitaper
+from .multitaper import multitaper_psd, multitaper_csd
+from . import wavelet
+# the reference's optional pycwt slot (reference __init__.py:38-42)
+pycwt = wavelet
 from . import config
 from .config import SpectralConfig, welch_psd
 from . import dft as dft_mod
@@ -190,6 +199,15 @@ __all__ = [
     "basic_pca",
     "heatpulse",
     "HeatPulseFFT",
+    "streaming",
+    "StreamingWelch",
+    "io",
+    "ShotLoader",
+    "multitaper",
+    "multitaper_psd",
+    "multitaper_csd",
+    "wavelet",
+    "pycwt",
     "config",
     "SpectralConfig",
     "welch_psd",

@@ -3,6 +3,7 @@
 from .structure import Struct
 from .detrend import detrend_none, detrend_mean, detrend_linear, detrend_func
 from . import profiling
+from . import sanity
 from .interp import (
     interp,
     trapz_var,
@@ -14,6 +15,7 @@ from .interp import (
 
 __all__ = [
     "profiling",
+    "sanity",
     "Struct",
     "detrend_none",
     "detrend_mean",

@@ -944,3 +944,176 @@ def test_fir_t_kernel_matches_plain_on_card(cuda_device, nch, nt, ntaps,
     assert err <= 1e-5
     if extra_rows > 0:
         assert torch.count_nonzero(got[nr:]).item() == 0
+
+
+# --------------------------------------------------------------------------- #
+# The streaming tier on the card
+# --------------------------------------------------------------------------- #
+
+def _stream_blocks(sw, x, y, block):
+    for s in range(0, x.shape[-1], block):
+        sw.push(x[s:s + block], y[:, s:s + block])
+    return sw
+
+
+def _stream_errs(got, ref):
+    return {k: float(np.abs(getattr(got, k) - getattr(ref, k)).max()
+                     / np.abs(getattr(ref, k)).max())
+            for k in ("Pxx", "Pyy", "Pxy")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cplx,nwins,block,offset", [
+    (False, 2048, 1 << 16, 0.0), (False, 2048, 50001, 100.0),
+    (False, 256, 3000, 300.0), (True, 4096, 1 << 17, 0.0),
+    (True, 512, 7777, 100.0)])
+def test_streaming_kernel_route_matches_plain_on_card(cuda_device, cplx,
+                                                      nwins, block, offset):
+    """StreamingWelch with fft_backend='pallas' on the card (kernel B once a
+    push with a segment: real blocks in float32 through welch_pair.cu,
+    complex ones in complex64 through welch.cu) against the 'xla' route in
+    float64 on the card: max |diff| / max |ref| <= 2e-5 per output, also
+    with DC offsets 100 and 300 times the noise (the centred sums)."""
+    rng = np.random.default_rng(nwins + block)
+    nt, nch = 1 << 18, 3
+    t = np.arange(nt) / 1e6
+    x = np.sin(2 * np.pi * 97e3 * t) + rng.standard_normal(nt) + offset
+    y = (0.5 * np.sin(2 * np.pi * 97e3 * t - 0.3)[None]
+         + rng.standard_normal((nch, nt)) + offset * np.arange(1, nch + 1)[
+             :, None])
+    if cplx:
+        x = x + 1j * rng.standard_normal(nt)
+        y = y + 1j * rng.standard_normal((nch, nt))
+    dt = torch.complex64 if cplx else torch.float32
+    xt = torch.as_tensor(x, dtype=dt, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=dt, device=cuda_device)
+    kw = dict(nwins=nwins, fs=1e6, nch=nch, onesided=not cplx,
+              device=cuda_device)
+    before = pw.LAUNCHES, pw.COMPLEX_LAUNCHES
+    sw = _stream_blocks(pt.StreamingWelch(fft_backend="pallas", **kw), xt, yt,
+                        block)
+    pushes = sum(1 for s in range(0, nt, block))
+    assert (pw.LAUNCHES - before[0], pw.COMPLEX_LAUNCHES - before[1]) == (
+        (0, pushes) if cplx else (pushes, 0))
+    wide = torch.complex128 if cplx else torch.float64
+    ref = _stream_blocks(pt.StreamingWelch(fft_backend="xla", **kw),
+                         xt.to(wide), yt.to(wide), block)
+    for k, e in _stream_errs(sw.result(), ref.result()).items():
+        assert e <= 2e-5, (k, e)
+
+
+@pytest.mark.cuda
+def test_streaming_pushes_without_a_segment_launch_nothing_on_card(
+        cuda_device):
+    """Pushes that complete no segment launch nothing; the push that
+    completes the first launches kernel B once."""
+    x = torch.randn(2048, device=cuda_device)
+    y = torch.randn(2, 2048, device=cuda_device)
+    sw = pt.StreamingWelch(nwins=1024, nch=2, fft_backend="pallas",
+                           device=cuda_device)
+    before = pw.LAUNCHES
+    for s in range(0, 1000, 100):
+        assert sw.push(x[s:s + 100], y[:, s:s + 100]) == 0
+    assert pw.LAUNCHES == before
+    assert sw.push(x[1000:2048], y[:, 1000:2048]) == 3
+    assert pw.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_streaming_non_power_of_two_takes_the_named_route_on_card(
+        cuda_device):
+    """nwins 1000 is outside kernel B: each push takes the route
+    ``pallas_route`` names (kernel E), within 2e-5 of the float64 'xla'
+    route on the card."""
+    rng = np.random.default_rng(3)
+    nt = 1 << 16
+    xt = torch.as_tensor(rng.standard_normal(nt) + 5.0, dtype=torch.float32,
+                         device=cuda_device)
+    yt = torch.as_tensor(rng.standard_normal((2, nt)), dtype=torch.float32,
+                         device=cuda_device)
+    kw = dict(nwins=1000, nch=2, device=cuda_device)
+    sw = pt.StreamingWelch(fft_backend="pallas", **kw)
+    assert sw._route(5, False) == "E"
+    before = pv.LAUNCHES, pw.LAUNCHES
+    _stream_blocks(sw, xt, yt, 8192)
+    assert (pv.LAUNCHES - before[0], pw.LAUNCHES - before[1]) == (8, 0)
+    ref = _stream_blocks(pt.StreamingWelch(fft_backend="xla", **kw),
+                         xt.double(), yt.double(), 8192)
+    for k, e in _stream_errs(sw.result(), ref.result()).items():
+        assert e <= 2e-5, (k, e)
+
+
+@pytest.mark.cuda
+def test_streaming_checkpoint_resumes_bit_for_bit_on_card(cuda_device,
+                                                          tmp_path):
+    rng = np.random.default_rng(4)
+    nt = 1 << 17
+    xt = torch.as_tensor(rng.standard_normal(nt) + 100.0,
+                         dtype=torch.float32, device=cuda_device)
+    yt = torch.as_tensor(rng.standard_normal((3, nt)), dtype=torch.float32,
+                         device=cuda_device)
+    kw = dict(nwins=2048, nch=3, fft_backend="pallas", device=cuda_device)
+    full = _stream_blocks(pt.StreamingWelch(**kw), xt, yt, 10000)
+    half = _stream_blocks(pt.StreamingWelch(**kw), xt[:60000],
+                          yt[:, :60000], 10000)
+    sw = pt.StreamingWelch.restore(half.checkpoint(str(tmp_path / "c.npz")),
+                                   fft_backend="pallas", device=cuda_device)
+    _stream_blocks(sw, xt[60000:], yt[:, 60000:], 10000)
+    a, b = full.result(), sw.result()
+    for k in ("Pxx", "Pyy", "Pxy"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+
+
+@pytest.mark.cuda
+def test_stream_welch_from_disk_on_card(cuda_device, tmp_path):
+    """An int16 capture with ADC offsets through the native loader and
+    ``stream_welch`` on the card (pinned staging, kernel B once a push)
+    against the same file on the CPU in float64: 2e-5 per output."""
+    rng = np.random.default_rng(5)
+    nt, nch, block = 300001, 4, 1 << 15
+    t = np.arange(nt) / 1e6
+    sig = (2000.0 + 200 * np.arange(nch)
+           + 40 * np.sin(2 * np.pi * 97e3 * t)[:, None]
+           + 16 * rng.standard_normal((nt, nch)))
+    path = tmp_path / "shot.i16"
+    path.write_bytes(np.round(sig).astype(np.int16).tobytes())
+    before = pw.LAUNCHES
+    with pt.ShotLoader(path, nch, "int16") as ld:
+        assert ld.native
+        got = pt.io.stream_welch(ld, nwins=2048, fs=1e6, block=block,
+                                 fft_backend="pallas", device=cuda_device)
+        assert pw.LAUNCHES - before == -(-nt // block)
+        ref = pt.StreamingWelch(nwins=2048, fs=1e6, nch=nch, device="cpu")
+        for blk in ld.stream(block=block):
+            blk = blk.astype(np.float64)
+            ref.push(blk[0], blk)
+    for k, e in _stream_errs(got, ref.result()).items():
+        assert e <= 2e-5, (k, e)
+
+
+@pytest.mark.cuda
+def test_multitaper_and_cwt_match_the_cpu_on_card(cuda_device):
+    """multitaper_psd (each weighting), multitaper_csd and cwt of float32
+    tensors on the card against the CPU float64 path on the same values:
+    1e-4 of max."""
+    rng = np.random.default_rng(6)
+    n = 1 << 15
+    x = rng.standard_normal(n).astype(np.float32)
+    y = (0.5 * x + rng.standard_normal(n)).astype(np.float32)
+    xd = torch.as_tensor(x, device=cuda_device)
+    yd = torch.as_tensor(y, device=cuda_device)
+
+    def err(g, r):
+        return float(np.abs(g - r).max() / np.abs(r).max())
+    for w in ("unity", "eigen", "adaptive"):
+        assert err(pt.multitaper_psd(xd, weighting=w)[1],
+                   pt.multitaper_psd(x.astype(np.float64), weighting=w,
+                                     device="cpu")[1]) <= 1e-4
+    got = pt.multitaper_csd(xd, yd)
+    ref = pt.multitaper_csd(x.astype(np.float64), y.astype(np.float64),
+                            device="cpu")
+    for i in (1, 2, 3):
+        assert err(got[i], ref[i]) <= 1e-4
+    W = pt.wavelet.cwt(xd, dt=1e-6)[0]
+    assert err(W, pt.wavelet.cwt(x.astype(np.float64), dt=1e-6,
+                                 device="cpu")[0]) <= 1e-4
