@@ -91,7 +91,18 @@ own main path inside phase 4.  The paths:
   checkpoint at half that stream, restored and finished, against the
   uninterrupted result bit for bit (phase 22); ``multitaper_psd``
   (adaptive) and ``multitaper_csd`` of 2**20 samples and the ``cwt`` of a
-  2**18-sample chirp, against the port's CPU float64 path (phase 23).
+  2**18-sample chirp, against the port's CPU float64 path (phase 23);
+- the mesh tier (``pyfft_tpu_torch.parallel``) on a one-rank NCCL group
+  started by ``parallel.init_distributed()``, a 1 x 1 mesh (phases 24-28):
+  ``fft_pwelch(..., mesh=..., fft_backend='pallas')`` at config 5 (kernel
+  B) and on Doppler IQ signals of 9 x 2**22 (kernel B on complex
+  signals), ``stft_sharded`` on config 2's chirp (kernel C),
+  ``fir_filter_sharded`` on config 0's channels with the 129-tap
+  band-pass (kernel A) and the lazy per-segment fill of a mesh
+  ``fft_pwelch`` at 2**20 samples (kernel C), each against the
+  single-device path on the card, with the collectives it issued
+  (``parallel.audit_collectives``' rows), its wall split by step and a
+  check that no operation touched a tensor off the card.
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
@@ -262,6 +273,21 @@ def time_runs(fn, reps=5):
 def time_ms(fn, reps=5):
     """Median of `reps` timed runs after one warm-up, by CUDA events."""
     return statistics.median(time_runs(fn, reps))
+
+
+def time_host(fn, reps=3):
+    """Median seconds of ``reps`` calls of ``fn`` after one warm-up, by the
+    host clock to a synchronize (calls that end on the host)."""
+    import torch
+    fn()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return statistics.median(runs)
 
 
 def trace_call(fn, kernel, windows=3):
@@ -788,6 +814,252 @@ def multitaper_wavelet(dev, n=1 << 20, nc=1 << 18):
     for frac, (fr, fi) in ridge.items():
         check(abs(fr - fi) / fi < 0.15, f"cwt ridge at {frac}: {fr} Hz "
               f"against {fi}")
+
+
+def mesh_run(name, fn, counts, reset_counts, reps):
+    """A mesh phase's drive of ``fn``: the main-path call with every
+    kernel's count set to 0 before it and ``counts()`` read after it (the
+    first call: it pays the one-rank group's first collectives), ``reps``
+    calls timed by the host clock to a synchronize, one call under
+    ``parallel.runtime.recording`` for the collectives and the wall split
+    by step (moments, halo, kernel, reductions, the rest host), and one
+    under a dispatch mode that lists every operation with a tensor off the
+    card (the host -> device copies of small NumPy constants counted
+    apart).
+    Returns ``(first output, main-path counts, fields to emit)``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from pyfft_tpu_torch.parallel import runtime
+    copies = (torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default,
+              torch.ops.aten.lift_fresh.default)
+    # a result's hand-over to NumPy (``.numpy()`` detaches the host copy)
+    handover = (torch.ops.aten.detach.default, torch.ops.aten.alias.default)
+
+    class OnCard(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.host_ops, self.h2d = {}, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            off = any(isinstance(a, torch.Tensor) and a.device.type != "cuda"
+                      for a in tree_leaves((args, kwargs)))
+            out = func(*args, **kwargs)
+            if off and func not in handover:
+                if func in copies:
+                    self.h2d += 1
+                else:
+                    key = str(func)
+                    self.host_ops[key] = self.host_ops.get(key, 0) + 1
+            return out
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    n = counts()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    with runtime.recording() as rec:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with OnCard() as oc:             # apart: the mode costs host time
+        fn()
+    split = {k: rec.wall.get(k, 0.0)
+             for k in ("moments", "halo", "kernel", "reductions")}
+    split["host"] = wall - sum(split.values())
+    check(not oc.host_ops, f"{name}: operations on tensors off the card "
+          f"{oc.host_ops}")
+    return out, n, dict(
+        launches=n, first_s=first_s, wall_s=statistics.median(runs),
+        wall_s_quartiles=statistics.quantiles(runs, n=4), reps=reps,
+        audited_wall_s=wall, wall_s_split=split,
+        collectives=rec.rows, host_tensor_ops=oc.host_ops,
+        h2d_copies=oc.h2d)
+
+
+def mesh_phases(dev, reset_counts, launches):
+    """Phases 24-28: the mesh tier (``pyfft_tpu_torch.parallel``) on a
+    one-rank NCCL group, a 1 x 1 mesh: every step of the path runs (the
+    global moments and their all-reduce, the kernels on the rank's block,
+    the all-reduce of the sums and the gathers) with no halo to exchange.
+    (a) ``fft_pwelch(..., mesh=..., fft_backend='pallas')`` at config 5
+    (kernel B), (b) the same on Doppler IQ signals of 9 x 2**22 (kernel B
+    on complex signals), (c) ``stft_sharded`` on config 2's chirp (kernel
+    C), (d) ``fir_filter_sharded`` on config 0's channels with the
+    129-tap band-pass (kernel A), (e) the lazy per-segment fill of a mesh
+    ``fft_pwelch`` at 2**20 samples (kernel C, every signal in one
+    launch); each against the single-device path on the same card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import pyfft_tpu_torch as pt
+    from pyfft_tpu_torch import parallel as par
+    from pyfft_tpu_torch import segmentation as seg
+    from pyfft_tpu_torch.ops import fir, stft, welch
+
+    par.init_distributed()
+    mesh = par.make_mesh(1, 1)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and mesh.device_type == "cuda",
+          f"mesh group: {dist.get_backend()} over {dist.get_world_size()} "
+          f"ranks, mesh on {mesh.device_type}")
+
+    def counts():
+        return dict(welch=welch.LAUNCHES, welch_complex=welch.COMPLEX_LAUNCHES,
+                    stft=stft.LAUNCHES, fir=fir.LAUNCHES)
+
+    def errs_of(got, ref):
+        return {k: rel_err(got[i], ref[i])[0]
+                for k, i in (("Pxx", 2), ("Pyy", 3), ("Pxy", 1))}
+
+    # ---- (a) config 5 through fft_pwelch(mesh=...) ----------------------- #
+    nt5 = 1 << 24
+    x5, y5 = signals(nt5, dev)
+    tvec = np.arange(nt5) / FS
+    args = dict(tbounds=[tvec[1], tvec[-2]], tper=4096.5 / FS, plotit=False,
+                fft_backend="pallas")
+    got, n, info = mesh_run(
+        "mesh_config5", lambda: pt.fft_pwelch(tvec, x5, y5, mesh=mesh,
+                                              **args),
+        counts, reset_counts, 10)
+    check(n == dict(welch=1, welch_complex=0, stft=0, fir=0),
+          f"mesh config 5 launched {n}")
+    launches["welch"] += n["welch"]
+    ref = pt.fft_pwelch(tvec, x5, y5, **args)
+    errs = errs_of(got, ref)
+    check(got[6].nwins == 4096 and "_lazy_segments" in got[6].__dict__,
+          "mesh config 5: nwins or the lazy fill")
+    emit("mesh_config5", nt=nt5, nch=NCH, nwins=4096, navr=got[6].Navr,
+         rel_err_vs_single_device=errs, tol=WELCH_TOL,
+         single_device_wall_s=time_host(
+             lambda: pt.fft_pwelch(tvec, x5, y5, **args)), **info)
+    for k, e in errs.items():
+        check(e <= WELCH_TOL, f"mesh config 5 {k}: {e} > {WELCH_TOL}")
+    del x5, y5, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- (b) Doppler IQ through fft_pwelch(mesh=...) --------------------- #
+    ntq = 1 << 22
+    xq, yq = iq_signals(ntq, dev)
+    tq = np.arange(ntq) / FS
+    argq = dict(tbounds=[tq[1], tq[-2]], tper=4096.5 / FS, plotit=False,
+                fft_backend="pallas")
+    got, n, info = mesh_run(
+        "mesh_doppler_iq", lambda: pt.fft_pwelch(tq, xq, yq, mesh=mesh,
+                                                 **argq),
+        counts, reset_counts, 10)
+    check(n == dict(welch=0, welch_complex=1, stft=0, fir=0),
+          f"mesh IQ launched {n}")
+    launches["welch_complex"] += n["welch_complex"]
+    ref = pt.fft_pwelch(tq, xq, yq, **argq)
+    errs = errs_of(got, ref)
+    chans = np.arange(NCH)
+    ipk = np.argmax(np.abs(got[3]), axis=0)
+    phi = np.angle(got[1][ipk, chans])
+    dphi = np.abs(np.angle(np.exp(1j * (phi + iq_phases()))))
+    emit("mesh_doppler_iq", nt=ntq, nch=NCH, nwins=got[6].nwins,
+         navr=got[6].Navr, two_sided=bool(got[0][0] < 0),
+         peak_hz=got[0][ipk].tolist(), phase_at_peak=phi.tolist(),
+         rel_err_vs_single_device=errs, tol=WELCH_TOL,
+         single_device_wall_s=time_host(
+             lambda: pt.fft_pwelch(tq, xq, yq, **argq)), **info)
+    for k, e in errs.items():
+        check(e <= WELCH_TOL, f"mesh IQ {k}: {e} > {WELCH_TOL}")
+    check(got[0][0] < 0 and np.all(np.abs(got[0][ipk] - IQ_F0)
+                                   <= FS / got[6].nwins)
+          and np.all(dphi <= LAG_PHASE_TOL), f"mesh IQ line {got[0][ipk]} "
+          f"Hz, phase {phi}")
+    del xq, yq, got, ref
+
+    # ---- (c) stft_sharded on config 2's chirp ----------------------------- #
+    nt2 = 1 << 24
+    x2, _ = chirp(nt2)
+    x2d = torch.from_numpy(x2).to(dev)
+    t2 = np.arange(nt2) / FS
+    plan2 = seg.plan_segments(nt2, nwins=2048, windowoverlap=0.5)
+    win2 = np.hanning(2049)[:-1]
+    got, n, info = mesh_run(
+        "mesh_stft", lambda: par.stft_sharded(x2d, t2, win2, plan2, FS, mesh),
+        counts, reset_counts, 5)
+    check(n == dict(welch=0, welch_complex=0, stft=1, fir=0),
+          f"mesh STFT launched {n}")
+    launches["stft"] += n["stft"]
+    ref = pt.stft_segments(x2d, t2, win2, plan2, FS)
+    err, _ = rel_err(got[2], ref[2])
+    tt_err = float(np.abs(got[0] - ref[0]).max())
+    emit("mesh_stft", nt=nt2, nwins=2048, navr=plan2.navr,
+         X_shape=list(got[2].shape), rel_err_vs_single_device=err,
+         tt_max_abs_diff_s=tt_err, tol=STFT_TOL,
+         single_device_wall_s=time_host(
+             lambda: pt.stft_segments(x2d, t2, win2, plan2, FS)), **info)
+    check(got[2].shape == (plan2.navr, plan2.nnyquist) and err <= STFT_TOL
+          and tt_err <= 1e-9, f"mesh STFT: {got[2].shape}, rel err {err}, "
+          f"tt {tt_err}")
+    del x2d, got, ref
+
+    # ---- (d) fir_filter_sharded on config 0's channels ------------------- #
+    taps = pt.filters.firwin(129, [0.05, 0.45], pass_zero=False)
+    _, y0 = signals(1 << 25, dev)
+    got, n, info = mesh_run(
+        "mesh_fir", lambda: par.fir_filter_sharded(y0, taps, mesh),
+        counts, reset_counts, 5)
+    check(n == dict(welch=0, welch_complex=0, stft=0, fir=1),
+          f"mesh FIR launched {n}")
+    launches["fir"] += n["fir"]
+    ref = pt.filters.fir_filter(y0, taps, backend="pallas")
+    err, _ = rel_err(got, ref)
+    same = bool(np.array_equal(got, ref))
+    emit("mesh_fir", shape=list(got.shape), ntaps=len(taps),
+         rel_err_vs_single_device=err, tol=FIR_TOL,
+         bit_for_bit_with_single_device=same,
+         differing=int(np.count_nonzero(got != ref)),
+         single_device_wall_s=time_host(
+             lambda: pt.filters.fir_filter(y0, taps, backend="pallas")),
+         **info)
+    check(got.shape == tuple(y0.shape) and err <= FIR_TOL,
+          f"mesh FIR {got.shape}: rel err {err}")
+    del y0, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- (e) the lazy per-segment fill of a mesh fft_pwelch -------------- #
+    nte = 1 << 20
+    xe, ye = signals(nte, dev)
+    te = np.arange(nte) / FS
+    arge = dict(tbounds=[te[1], te[-2]], tper=4096.5 / FS, plotit=False,
+                fft_backend="pallas")
+    fields = ("Pxx_seg", "Pyy_seg", "Pxy_seg", "Xfft_seg", "Yfft_seg")
+
+    def filled(**kw):
+        info_e = pt.fft_pwelch(te, xe, ye, **arge, **kw)[6]
+        return {k: getattr(info_e, k) for k in fields}
+    got, n, info = mesh_run("mesh_lazy_fill", lambda: filled(mesh=mesh),
+                            counts, reset_counts, 5)
+    check(n == dict(welch=1, welch_complex=0, stft=1, fir=0),
+          f"mesh fill launched {n}")
+    launches["welch"] += n["welch"]
+    launches["stft"] += n["stft"]
+    ref = filled()
+    errs = {k: rel_err(got[k], ref[k])[0] for k in fields}
+    emit("mesh_lazy_fill", nt=nte, nch=NCH,
+         shapes={k: list(v.shape) for k, v in got.items()},
+         dtypes={k: str(v.dtype) for k, v in got.items()},
+         rel_err_vs_single_device=errs, tol=STFT_TOL,
+         single_device_wall_s=time_host(filled), **info)
+    for k, e in errs.items():
+        check(got[k].dtype == np.complex128 and got[k].shape == ref[k].shape
+              and e <= STFT_TOL, f"mesh fill {k}: {got[k].dtype} "
+              f"{got[k].shape}, rel err {e}")
+    dist.destroy_process_group()
 
 
 def main():
@@ -2242,6 +2514,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         stream_phases(Path(tmp), dev, reset_counts, launches)
     multitaper_wavelet(dev)
+    mesh_phases(dev, reset_counts, launches)
 
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")

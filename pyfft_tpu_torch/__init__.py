@@ -49,11 +49,13 @@ entries)
 ``ops/transform.py``               ``ops/transform.py`` (``torch.fft``)
 (kernel build and load)            ``ops/_build.py``
 ``filters.py``                     ``filters.py`` (blocked IIR)
-``spectral.py``                    ``spectral.py`` (no mesh tier yet)
+``spectral.py``                    ``spectral.py``
+``parallel/`` (the Welch half:     ``parallel/`` (``torch.distributed``,
+mesh, welch, fir, stft, runtime)   ``DeviceMesh``; the FFT half to come)
 ``fftanal.py``                     ``fftanal.py``
 ``spectrogram.py``                 ``spectrogram.py``
 ``integrate.py``                   ``integrate.py`` (host NumPy)
-``hilbert.py``                     ``hilbert.py`` (no mesh tier yet)
+``hilbert.py``                     ``hilbert.py`` (no mesh: the FFT half)
 ``notch.py``, ``deriv.py``,        the same names
 ``laplace.py``, ``ccf.py``,
 ``doppler.py``, ``pca.py``,

@@ -21,7 +21,8 @@ Routes (gates on shapes only):
   other input (N-D, ``nfft != nt``, no split) takes ``torch.fft`` on its
   device.
 
-``mesh=`` raises ``NotImplementedError`` until the mesh tier is ported.
+``mesh=`` raises ``NotImplementedError`` until the FFT half of the mesh
+tier (``hilbert_sharded``) is ported.
 """
 from __future__ import annotations
 
@@ -122,8 +123,9 @@ def envelope_phase(uin, nfft=None, axes=-1, mesh=None, device=None):
     """
     if mesh is not None:
         raise NotImplementedError(
-            "envelope_phase(mesh=...) needs the port's mesh tier, which is "
-            "not ported yet")
+            "envelope_phase(mesh=...) needs hilbert_sharded, the FFT half "
+            "of the mesh tier (ROADMAP Queue 1 item 4b), which is not "
+            "ported yet")
     dev = _device(device, uin)
     u = (uin.to(device=dev, dtype=torch.float32)
          if isinstance(uin, torch.Tensor)

@@ -311,6 +311,21 @@ def pallas_route(*, nwins, noverlap, navr, nnyquist, onesided,
     return None
 
 
+def _kernel_sums(route, x, y, win, nfreq, *, navr, nwins, hop):
+    """``(Pxx, Pyy, Pxy_re, Pxy_im)`` of ``x (nt,)`` against ``y (nch,
+    nt)`` summed over ``navr`` segments, unscaled and without detrend,
+    through the kernel ``route`` (``'B'``, ``'E'`` or ``'H'``) names: on
+    CUDA tensors the kernel, on CPU tensors its plain version.  The
+    streaming and mesh tiers sum blocks they have detrended themselves
+    with it."""
+    from .ops import welch, welch_v1
+    kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=0)
+    if route == "E":
+        return welch_v1._run(x, y, win, nfreq, 1.0, **kw)
+    return welch._run(x, y, win, nfreq, 1.0, taps=None, packed=route == "H",
+                      **kw)
+
+
 def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
                        nfft, nnyquist, onesided, detrend_style, ntmodel):
     """The kernel Welch paths (:func:`pallas_route`), or None where no
@@ -376,6 +391,52 @@ def _make_segment_fill(x_in, y_in, win, s1sq_enbw, **static):
         info.Xfft_seg = out["Xfft_seg"]
         info.Yfft_seg = out["Yfft_seg"]
         info.phixy_seg = np.angle(out["Pxy_seg"])
+        info.varphi_seg = np.zeros_like(info.phixy_seg)
+    return fill
+
+
+def _make_segment_fill_sharded(x_in, y_in, win, s1sq_enbw, mesh, fs,
+                               **static):
+    """Distributed lazy fill: the per-segment spectra computed where the
+    samples live (the ``raw`` mode of :func:`parallel.stft.stft_sharded`,
+    ``x_in (nt,)`` and every channel of ``y_in (nt, nch)`` in one pass)
+    rather than recomputed on one device, so the reference's
+    ``P??_seg``/``?fft_seg`` contract (``fft_analysis.py:391-393``) holds
+    when the input only fits the mesh.  Scaling as :func:`_welch_core_xla`:
+    ``Xfft_seg`` raw, all ``nfft`` bins in natural order; the power
+    segments one-sided-doubled (or ``fftshift``-ed) and divided by ``S1^2
+    ENBW``; every field complex128."""
+    def fill(info):
+        from .parallel.stft import stft_rows
+        plan = seg.SegmentPlan(
+            nsig=x_in.shape[0], nwins=static["nwins"],
+            noverlap=static["noverlap"], navr=static["navr"],
+            nfft=static["nfft"], nnyquist=static["nnyquist"])
+        dtype = torch.promote_types(x_in.dtype, y_in.dtype)
+        rows = torch.cat([x_in[None].to(dtype), y_in.T.to(dtype)])
+        _, XY = stft_rows(rows, win, plan, fs, mesh,
+                          onesided=static["onesided"],
+                          detrend_style=static["detrend_style"], raw=True)
+        # the products in complex128 on the rank's device
+        XY = XY.to(torch.complex128)
+        X, Ys = XY[0], XY[1:]
+        P = torch.cat([(X.real ** 2 + X.imag ** 2)[None].to(XY.dtype),
+                       (Ys.real ** 2 + Ys.imag ** 2).to(XY.dtype),
+                       Ys * X.conj()[None]])
+        nfft, nnyq = static["nfft"], static["nnyquist"]
+        if static["onesided"]:
+            P = P[..., :nnyq] * torch.as_tensor(
+                _onesided_power_scale(nfft, nnyq), device=P.device)
+        else:
+            P = torch.fft.fftshift(P, dim=-1)
+        P = _np(P * (1.0 / s1sq_enbw))
+        nch = Ys.shape[0]
+        info.Pxx_seg = P[0]
+        info.Pyy_seg = P[1:1 + nch]
+        info.Pxy_seg = P[1 + nch:]
+        info.Xfft_seg = _np(X)
+        info.Yfft_seg = _np(Ys)
+        info.phixy_seg = np.angle(info.Pxy_seg)
         info.varphi_seg = np.zeros_like(info.phixy_seg)
     return fill
 
@@ -555,18 +616,19 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
     (computed on ``device``; see the module docstring).  ``fft_backend``:
     None/'auto' or 'xla'/'mxu' (``torch.fft``), or 'pallas' (kernel B where
     its gate holds, else kernel E, else ``torch.fft``: :func:`pallas_route`).
-    ``mesh`` is not supported yet: it needs the mesh tier on
-    ``torch.distributed``, which is not ported yet.
+    ``mesh`` (a ``('ch', 't')`` mesh of :mod:`pyfft_tpu_torch.parallel`,
+    or ``'auto'`` for ``make_mesh(ch=1)`` over every rank of the world)
+    runs the sharded Welch pipeline (:func:`parallel.welch_psd_sharded`),
+    SPMD: every rank of the mesh calls with the same inputs and gets the
+    same result; the per-segment arrays are then filled on first access by
+    the sharded raw STFT (the nT-model's by the single-device pipeline),
+    whose collectives need every rank of the mesh to touch them too.
 
     Returns ``(freq, Pxy, Pxx, Pyy, Cxy, phi_xy, fftinfo)`` as NumPy
     arrays.  Where segment arithmetic after reflect-extension would index
     past the analyzed span, ``Navr`` is clamped to the largest count that
     fits.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "fft_pwelch(mesh=...) needs the mesh tier on "
-            "torch.distributed, which is not ported yet")
     calcNavr = Navr is None
     if windowfunction is None:
         windowfunction = "Hanning"
@@ -713,6 +775,35 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
             Pxy = Pxy[:, :Nnyquist]
         Pyy = Pyy.T
         Pxy = Pxy.T
+    elif mesh is not None:
+        # distributed path: time-split blocks with a halo exchange over a
+        # mesh, the single-device pipeline's normalization contract
+        from . import parallel as par
+        if isinstance(mesh, str) and mesh == "auto":
+            mesh = par.make_mesh(ch=1, device=dev)
+        if verbose:
+            print("using the sharded Welch pipeline over mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        plan = seg.SegmentPlan(nsig=int(y_in.shape[0]), nwins=int(nwins),
+                               noverlap=int(noverlap), navr=int(Navr),
+                               nfft=int(nfft), nnyquist=int(Nnyquist))
+        with stage("fft_pwelch.device_core", log=False):
+            freq, Pxx, Pyy_s, Pxy_s = par.welch_psd_sharded(
+                x_in, y_in.T, win, plan, Fs, mesh, onesided=bool(onesided),
+                detrend_style=int(detrend_style), fft_backend=fft_backend,
+                ntmodel=bool(nTmodel))
+        Pyy = Pyy_s.T
+        Pxy = Pxy_s.T
+        s1sq_enbw = fftinfo.S1 ** 2 * fftinfo.ENBW
+        if nTmodel:
+            # the nT-model holds one reference window: the single-device
+            # recompute is small
+            fftinfo._defer_segments(_make_segment_fill(
+                x_in, y_in, win, s1sq_enbw, **static))
+        else:
+            fftinfo._defer_segments(_make_segment_fill_sharded(
+                x_in, y_in, win, s1sq_enbw, mesh, Fs,
+                **{k: v for k, v in static.items() if k != "ntmodel"}))
     else:
         if verbose:
             print("using the batched device Welch pipeline "

@@ -55,9 +55,9 @@ import torch
 
 from . import segmentation as seg
 from .config import resolve_device
-from .spectral import (_onesided_power_scale, pallas_route,
+from .spectral import (_kernel_sums, _onesided_power_scale, pallas_route,
                        resolve_fft_backend)
-from .ops import welch, welch_v1
+from .ops import welch
 from .utils.structure import Struct
 from .windows import windows as _windows
 
@@ -220,15 +220,12 @@ class StreamingWelch:
         """``(xc, yc) -> (Pxx, Pyy, Pxy_re, Pxy_im)`` summed over ``navr``
         segments, unscaled: the route's kernel (its plain version on CPU
         tensors) or ``torch.fft``."""
-        kw = dict(navr=navr, nwins=self.nwins, hop=self.hop,
-                  detrend_style=0)
+        kw = dict(navr=navr, nwins=self.nwins, hop=self.hop)
         nf, win = self.nfreq, self.win
-        if route == "E":
-            return lambda xc, yc: welch_v1._run(xc, yc, win, nf, 1.0, **kw)
-        if route in ("B", "H"):
-            return lambda xc, yc: welch._run(xc, yc, win, nf, 1.0, taps=None,
-                                             packed=route == "H", **kw)
-        return lambda xc, yc: welch.welch_plain(xc, yc, win, nf, 1.0, **kw)
+        if route is not None:
+            return lambda xc, yc: _kernel_sums(route, xc, yc, win, nf, **kw)
+        return lambda xc, yc: welch.welch_plain(xc, yc, win, nf, 1.0,
+                                                detrend_style=0, **kw)
 
     def push(self, x, y=None):
         """Consume the next time block (``x`` (nb,); ``y`` (nch, nb)), NumPy

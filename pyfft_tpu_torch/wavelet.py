@@ -6,7 +6,8 @@ batched spectral multiply,
     W[a, n] = ifft( fft(x)[k] * conj(psi_hat(s_a * omega_k)) )[n]
 
 so the scale axis is the batch axis of one ``torch.fft.ifft`` on the
-compute device (no per-scale loop); the filter bank is built there too.
+compute device (no per-scale loop); the filter bank is built there too
+(its exponential by NumPy for a CPU tensor: :meth:`Morlet.hat`).
 
 API follows the Torrence & Compo conventions (the pycwt lineage):
 
@@ -55,10 +56,21 @@ class Morlet:
 
     def hat(self, s_omega):
         """psi_hat(s*omega) on the positive-frequency axis (analytic), for
-        NumPy arrays or tensors."""
-        exp = torch.exp if isinstance(s_omega, torch.Tensor) else np.exp
-        return (np.pi ** -0.25) * exp(
-            -0.5 * (s_omega - self.omega0) ** 2) * (s_omega > 0.0)
+        NumPy arrays or tensors.
+
+        On a CPU tensor the exponential is NumPy's: torch's float64
+        ``torch.exp`` on the CPU has returned values off by up to 3e-9 in
+        one thread's share of its first multithreaded call in a process
+        (``scripts/torch_exp_first_call.py`` reproduces it), where the bank
+        must hold float64 rounding."""
+        arg = -0.5 * (s_omega - self.omega0) ** 2
+        if not isinstance(s_omega, torch.Tensor):
+            e = np.exp(arg)
+        elif arg.device.type == "cpu":
+            e = torch.from_numpy(np.exp(arg.numpy()))
+        else:
+            e = torch.exp(arg)
+        return (np.pi ** -0.25) * e * (s_omega > 0.0)
 
 
 def cwt(x, dt=1.0, dj=0.125, s0=None, J=None, wavelet=None, device=None):

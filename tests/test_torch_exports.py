@@ -1,9 +1,9 @@
 """The port's public names against the JAX package's.
 
 ``pyfft_tpu_torch.__all__`` covers ``pyfft_tpu.__all__``, except the names
-ROADMAP.md lists as TPU-only ("Not to port") and the mesh tier's (Queue 1
-item 4, ``pyfft_tpu.parallel``), which the JAX package's top level does not
-export.  The same holds for ``ops`` and ``utils``.
+ROADMAP.md lists as TPU-only ("Not to port").  The same holds for ``ops``,
+``utils`` and ``parallel``, whose FFT half (Queue 1 item 4b) is not ported
+yet.
 """
 import importlib
 
@@ -12,20 +12,25 @@ import pytest
 import pyfft_tpu
 import pyfft_tpu_torch
 
-# ROADMAP.md "Not to port": the matmul DFTs of ops/mxu_fft.py
+# ROADMAP.md "Not to port": the matmul DFTs of ops/mxu_fft.py and JAX's
+# own sharding API
 TPU_ONLY = {"ops": {"mxu_fft", "rfft_pair", "fft_pair", "ifft_pair",
-                    "irfft_pair", "dft_matrices"}}
-# Queue 1 item 4: the mesh tier
-MESH = {"parallel"}
+                    "irfft_pair", "dft_matrices"},
+            "parallel": {"shard_map", "P", "NamedSharding"}}
+# Queue 1 item 4b: the FFT half of the mesh tier
+MESH = {"parallel": {"fft_sharded", "ifft_sharded", "rfft_sharded",
+                     "irfft_sharded", "hilbert_sharded", "axis_swap",
+                     "four_step_factor", "project_scaling",
+                     "project_scaling_paths"}}
 
 
-@pytest.mark.parametrize("module", ["", "ops", "utils"])
+@pytest.mark.parametrize("module", ["", "ops", "utils", "parallel"])
 def test_all_covers_the_jax_package(module):
     suffix = f".{module}" if module else ""
     jax_mod = importlib.import_module("pyfft_tpu" + suffix)
     port = importlib.import_module("pyfft_tpu_torch" + suffix)
     missing = (set(jax_mod.__all__) - set(port.__all__)
-               - TPU_ONLY.get(module, set()) - MESH)
+               - TPU_ONLY.get(module, set()) - MESH.get(module, set()))
     assert not missing
     for name in port.__all__:
         assert hasattr(port, name), name

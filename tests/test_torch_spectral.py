@@ -265,9 +265,17 @@ def test_backend_names_and_mesh():
     assert psp.resolve_fft_backend("auto") == "xla"
     for name in ("xla", "mxu", "pallas"):
         assert psp.resolve_fft_backend(name) == name
+    # mesh='auto' runs the sharded pipeline on a one-rank gloo group (the
+    # mesh tier, tests/test_torch_parallel.py): the single-device result
+    import torch.distributed as dist
     t, x, y = _signals(N=512)
-    with pytest.raises(NotImplementedError, match="the mesh tier on torch.distributed, which is not ported yet"):
-        pt.fft_pwelch(t, x, y, mesh="auto", plotit=False)
+    kw = dict(tbounds=[t[1], t[-2]], Navr=4, plotit=False)
+    try:
+        # the lazy segment fill is collective too: compare inside the group
+        _compare(pt.fft_pwelch(t, x, y, mesh="auto", **kw),
+                 pt.fft_pwelch(t, x, y, **kw), rtol=1e-12, floor=1e-12)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_mxu_is_an_alias_of_xla():
