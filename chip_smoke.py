@@ -102,7 +102,16 @@ own main path inside phase 4.  The paths:
   ``fft_pwelch`` at 2**20 samples (kernel C), each against the
   single-device path on the card, with the collectives it issued
   (``parallel.audit_collectives``' rows), its wall split by step and a
-  check that no operation touched a tensor off the card.
+  check that no operation touched a tensor off the card;
+- the mesh tier's FFT half on the same group (phases 29-31, the same
+  records beside the card's ``nvidia-smi`` name and power limit): the
+  four-step ``fft_sharded`` on 2**24 complex64 samples and on 8 x 2**22
+  real ones against ``torch.fft.fft`` (and complex128), ``ifft_sharded``
+  back, ``rfft_sharded``/``irfft_sharded`` at 2**24 (phase 29); the
+  distributed Bluestein at N = 10**7, M = 2**25, against a complex128
+  ``torch.fft.fft`` (phase 30); ``envelope_phase(..., mesh=...)`` on
+  config 4's AM signal against the single-device call (phase 31).  This
+  path launches no kernel of the port.
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
@@ -170,6 +179,9 @@ STREAM_TONE = 2.0   # the streamed capture: the tone's amplitude (noise units)
 DC_TOL = 1e-3       # the streamed capture: bins 0-2, streamed vs batch, over
                     # the noise floor (the median of Pyy)
 MT_TOL = 1e-4       # multitaper, cwt: card (float32) vs CPU (float64)
+MESH_FFT_TOL = 2e-5  # the four-step (complex64) vs torch.fft, share of max
+BLUESTEIN_TOL = 1e-4  # Bluestein at M = 2**25 in complex64 vs complex128
+MESH_ENV_TOL = 2e-5  # envelope over the mesh vs one card, share of max
 HP_RUNINFO = dict(  # tests/test_heatpulse.py's RUNINFO over a 10 s programme
     fmod=33.0, harms=[1, 2], intno2per=2, overlap=0.5, winfun="hanning",
     fwid=8.0, tbounds=[0.25, 9.75], DutyCycle=0.5, usesegs=False, igch=None,
@@ -628,7 +640,7 @@ def stream_split(path, nt, nwins, dev):
                 **per), prof
 
 
-def stream_phases(tmp, dev, reset_counts, launches, nt=1 << 25):
+def stream_phases(tmp, dev, launches, nt=1 << 25):
     """Phases 21-22: config 0 streamed from an int16 file on disk through
     ``stream_welch`` (the native loader, kernel B on real signals), held
     against the batch ``fft_pwelch`` over the same span, split by step;
@@ -816,13 +828,14 @@ def multitaper_wavelet(dev, n=1 << 20, nc=1 << 18):
               f"against {fi}")
 
 
-def mesh_run(name, fn, counts, reset_counts, reps):
+def mesh_run(name, fn, counts, reps):
     """A mesh phase's drive of ``fn``: the main-path call with every
     kernel's count set to 0 before it and ``counts()`` read after it (the
     first call: it pays the one-rank group's first collectives), ``reps``
     calls timed by the host clock to a synchronize, one call under
     ``parallel.runtime.recording`` for the collectives and the wall split
-    by step (moments, halo, kernel, reductions, the rest host), and one
+    by the steps the call marks (moments, halo, kernel, reductions; fft,
+    twiddle, all_to_all; the rest host), and one
     under a dispatch mode that lists every operation with a tensor off the
     card (the host -> device copies of small NumPy constants counted
     apart).
@@ -874,8 +887,7 @@ def mesh_run(name, fn, counts, reset_counts, reps):
         wall = time.perf_counter() - t0
     with OnCard() as oc:             # apart: the mode costs host time
         fn()
-    split = {k: rec.wall.get(k, 0.0)
-             for k in ("moments", "halo", "kernel", "reductions")}
+    split = {k: v for k, v in rec.wall.items() if k != "host"}
     split["host"] = wall - sum(split.values())
     check(not oc.host_ops, f"{name}: operations on tensors off the card "
           f"{oc.host_ops}")
@@ -887,7 +899,7 @@ def mesh_run(name, fn, counts, reset_counts, reps):
         h2d_copies=oc.h2d)
 
 
-def mesh_phases(dev, reset_counts, launches):
+def mesh_phases(dev, launches):
     """Phases 24-28: the mesh tier (``pyfft_tpu_torch.parallel``) on a
     one-rank NCCL group, a 1 x 1 mesh: every step of the path runs (the
     global moments and their all-reduce, the kernels on the rank's block,
@@ -931,7 +943,7 @@ def mesh_phases(dev, reset_counts, launches):
     got, n, info = mesh_run(
         "mesh_config5", lambda: pt.fft_pwelch(tvec, x5, y5, mesh=mesh,
                                               **args),
-        counts, reset_counts, 10)
+        counts, 10)
     check(n == dict(welch=1, welch_complex=0, stft=0, fir=0),
           f"mesh config 5 launched {n}")
     launches["welch"] += n["welch"]
@@ -957,7 +969,7 @@ def mesh_phases(dev, reset_counts, launches):
     got, n, info = mesh_run(
         "mesh_doppler_iq", lambda: pt.fft_pwelch(tq, xq, yq, mesh=mesh,
                                                  **argq),
-        counts, reset_counts, 10)
+        counts, 10)
     check(n == dict(welch=0, welch_complex=1, stft=0, fir=0),
           f"mesh IQ launched {n}")
     launches["welch_complex"] += n["welch_complex"]
@@ -990,7 +1002,7 @@ def mesh_phases(dev, reset_counts, launches):
     win2 = np.hanning(2049)[:-1]
     got, n, info = mesh_run(
         "mesh_stft", lambda: par.stft_sharded(x2d, t2, win2, plan2, FS, mesh),
-        counts, reset_counts, 5)
+        counts, 5)
     check(n == dict(welch=0, welch_complex=0, stft=1, fir=0),
           f"mesh STFT launched {n}")
     launches["stft"] += n["stft"]
@@ -1012,7 +1024,7 @@ def mesh_phases(dev, reset_counts, launches):
     _, y0 = signals(1 << 25, dev)
     got, n, info = mesh_run(
         "mesh_fir", lambda: par.fir_filter_sharded(y0, taps, mesh),
-        counts, reset_counts, 5)
+        counts, 5)
     check(n == dict(welch=0, welch_complex=0, stft=0, fir=1),
           f"mesh FIR launched {n}")
     launches["fir"] += n["fir"]
@@ -1043,7 +1055,7 @@ def mesh_phases(dev, reset_counts, launches):
         info_e = pt.fft_pwelch(te, xe, ye, **arge, **kw)[6]
         return {k: getattr(info_e, k) for k in fields}
     got, n, info = mesh_run("mesh_lazy_fill", lambda: filled(mesh=mesh),
-                            counts, reset_counts, 5)
+                            counts, 5)
     check(n == dict(welch=1, welch_complex=0, stft=1, fir=0),
           f"mesh fill launched {n}")
     launches["welch"] += n["welch"]
@@ -1059,7 +1071,159 @@ def mesh_phases(dev, reset_counts, launches):
         check(got[k].dtype == np.complex128 and got[k].shape == ref[k].shape
               and e <= STFT_TOL, f"mesh fill {k}: {got[k].dtype} "
               f"{got[k].shape}, rel err {e}")
-    dist.destroy_process_group()
+
+
+def mesh_fft_phases(dev, card, n=1 << 24,
+                    n_blue=10 ** 7):
+    """Phases 29-31: the mesh tier's FFT half (``parallel.fft``) on the
+    one-rank NCCL group, a 1 x 1 mesh: every all-to-all of the path runs,
+    between ranks of one.  (29) ``fft_sharded`` (the four-step) on 2**24
+    complex64 samples and on 8 x 2**22 real float32 ones against
+    ``torch.fft.fft``, ``ifft_sharded`` back, ``rfft_sharded`` and
+    ``irfft_sharded`` at 2**24; (30) ``_bluestein_sharded`` at N = 10**7 (M
+    = 2**25), which the public route takes only where d**2 does not divide
+    N, never on one rank, against a complex128 ``torch.fft.fft``; (31)
+    ``envelope_phase(..., mesh=...)`` on config 4's AM signal against the
+    single-device ``envelope_phase`` (kernel D's chain).  The path launches
+    no kernel of the port: every count must stay 0.  ``card`` (the
+    ``nvidia-smi`` name and power limit) goes on every line; ``n`` and
+    ``n_blue`` are the lengths (the real input is 8 x ``n/4``)."""
+    import numpy as np
+    import torch
+    import pyfft_tpu_torch as pt
+    from pyfft_tpu_torch import parallel as par
+    from pyfft_tpu_torch.parallel import fft as pfft
+
+    par.init_distributed()
+    mesh = par.make_mesh(1, 1)
+    zero = {k: 0 for k in read_counts()}
+
+    def drive(name, fn):
+        out, n, info = mesh_run(name, fn, read_counts, 10)
+        check(n == zero, f"{name} launched kernels {n}")
+        return out, info
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c128 = torch.complex128
+
+    # ---- phase 29: fft_sharded, the four-step ---------------------------- #
+    n29 = n
+    z = torch.randn(n29, dtype=torch.complex64, device=dev, generator=gen)
+    (yr, yi), info = drive("mesh_fft_four_step",
+                           lambda: par.fft_sharded(z, mesh))
+    y = torch.complex(yr, yi)
+    e64 = rel_err(y, torch.fft.fft(z))[0]
+    e128 = rel_err(y, torch.fft.fft(z.to(c128)))[0]
+    cufft128 = rel_err(torch.fft.fft(z), torch.fft.fft(z.to(c128)))[0]
+    emit("mesh_fft_four_step", card=card, n=n29,
+         factors=list(par.four_step_factor(n29, 1)),
+         rel_err_vs_torch_fft=e64, rel_err_vs_complex128=e128,
+         torch_fft_rel_err_vs_complex128=cufft128, tol=MESH_FFT_TOL,
+         torch_fft_wall_s=time_host(lambda: torch.fft.fft(z), 10),
+         four_step_ms=time_ms(lambda: pfft._fourstep_run(z, mesh), 10),
+         torch_fft_ms=time_ms(lambda: torch.fft.fft(z), 10), **info)
+    check(y.shape == (n29,) and e64 <= MESH_FFT_TOL
+          and e128 <= MESH_FFT_TOL, f"four-step 2**24: {y.shape}, rel err "
+          f"{e64} (complex128 {e128})")
+
+    xr = torch.randn(NCH, n // 4, device=dev, generator=gen)
+    (br, bi), info = drive("mesh_fft_real_batched",
+                           lambda: par.fft_sharded(xr, mesh))
+    e64 = rel_err(torch.complex(br, bi), torch.fft.fft(xr))[0]
+    e128 = rel_err(torch.complex(br, bi), torch.fft.fft(xr.double()))[0]
+    emit("mesh_fft_real_batched", card=card, shape=list(xr.shape),
+         rel_err_vs_torch_fft=e64, rel_err_vs_complex128=e128,
+         tol=MESH_FFT_TOL,
+         torch_fft_wall_s=time_host(lambda: torch.fft.fft(xr), 10), **info)
+    check(br.shape == xr.shape and e64 <= MESH_FFT_TOL
+          and e128 <= MESH_FFT_TOL, f"four-step 8 x 2**22 real: rel err "
+          f"{e64} (complex128 {e128})")
+    del xr, br, bi
+
+    (zr, zi), info = drive("mesh_ifft", lambda: par.ifft_sharded(y, mesh))
+    e_back = rel_err(torch.complex(zr, zi), z)[0]
+    emit("mesh_ifft", card=card, n=n29, rel_err_vs_input=e_back,
+         tol=MESH_FFT_TOL, **info)
+    check(e_back <= MESH_FFT_TOL, f"ifft_sharded back: rel err {e_back}")
+    del y, zr, zi
+
+    x29 = z.real.contiguous()
+
+    def round_trip():
+        re, im = par.rfft_sharded(x29, mesh)
+        return re, im, par.irfft_sharded(re, im, n29, mesh)
+    (re, im, back), info = drive("mesh_rfft_irfft", round_trip)
+    ref = torch.fft.rfft(x29)
+    e_r = rel_err(re + 1j * im, ref)[0]
+    e_r128 = rel_err(re + 1j * im, torch.fft.rfft(x29.double()))[0]
+    e_back = rel_err(back, x29)[0]
+    emit("mesh_rfft_irfft", card=card, n=n29, bins=int(re.shape[-1]),
+         rel_err_rfft_vs_torch_fft=e_r, rel_err_rfft_vs_complex128=e_r128,
+         rel_err_irfft_vs_input=e_back, tol=MESH_FFT_TOL,
+         dtypes=[str(re.dtype), str(back.dtype)], **info)
+    check(re.shape == (n29 // 2 + 1,) and back.shape == (n29,)
+          and max(e_r, e_r128, e_back) <= MESH_FFT_TOL,
+          f"rfft/irfft_sharded: rel err {e_r}, {e_r128}, back {e_back}")
+    del z, x29, re, im, back, ref
+    torch.cuda.empty_cache()
+
+    # ---- phase 30: the distributed Bluestein ----------------------------- #
+    n30 = n_blue
+    z30 = torch.randn(n30, dtype=torch.complex64, device=dev, generator=gen)
+    y30, info = drive("mesh_bluestein",
+                      lambda: pfft._bluestein_sharded(z30, mesh))
+    e64 = rel_err(y30, torch.fft.fft(z30))[0]
+    e128 = rel_err(y30, torch.fft.fft(z30.to(c128)))[0]
+    emit("mesh_bluestein", card=card, n=n30, M=pfft.bluestein_size(n30, 1),
+         rel_err_vs_complex128=e128, rel_err_vs_torch_fft=e64,
+         tol=BLUESTEIN_TOL,
+         torch_fft_wall_s=time_host(lambda: torch.fft.fft(z30), 10), **info)
+    check(y30.shape == (n30,) and e128 <= BLUESTEIN_TOL,
+          f"Bluestein 10**7: {y30.shape}, rel err vs complex128 {e128}")
+    del z30, y30
+    torch.cuda.empty_cache()
+
+    # ---- phase 31: envelope_phase over the mesh at config 4 -------------- #
+    nt4 = n
+    am = torch.as_tensor(am_signal(nt4)[0], device=dev)
+    (env, ph), info = drive(
+        "mesh_envelope_phase",
+        lambda: pt.hilbert_mod.envelope_phase(am, mesh=mesh))
+    env1, ph1 = pt.hilbert_mod.envelope_phase(am)
+    env_err = float(np.abs(env - env1).max() / np.abs(env1).max())
+    keep = env1 > 1e-2 * env1.max()
+    dphi = np.angle(np.exp(1j * (ph.astype(np.float64) - ph1)))
+    ph_err = float(np.abs(dphi[keep]).max())
+    emit("mesh_envelope_phase", card=card, nt=nt4,
+         rel_err_env_vs_single_device=env_err, env_tol=MESH_ENV_TOL,
+         phase_err_vs_single_device_rad=ph_err, phase_tol=PHASE_TOL,
+         single_device_wall_s=time_host(
+             lambda: pt.hilbert_mod.envelope_phase(am), 10), **info)
+    check(env.shape == ph.shape == (nt4,) and env.dtype == np.float32
+          and env_err <= MESH_ENV_TOL and ph_err <= PHASE_TOL,
+          f"mesh envelope_phase: {env.shape}, envelope {env_err}, phase "
+          f"{ph_err} rad")
+
+
+def reset_counts():
+    """Every kernel's launch count to 0, before a main path."""
+    from pyfft_tpu_torch.ops import fir, probe, stft, welch, welch_v1
+    from pyfft_tpu_torch.ops import hilbert as hk
+    fir.LAUNCHES = welch.LAUNCHES = stft.LAUNCHES = hk.LAUNCHES = 0
+    welch_v1.LAUNCHES = welch.PACKED_LAUNCHES = fir.FIR_T_LAUNCHES = 0
+    welch.COMPLEX_LAUNCHES = 0
+    probe.LAUNCHES.update(colsum=0, chain=0)
+
+
+def read_counts():
+    """Every kernel's launch count."""
+    from pyfft_tpu_torch.ops import fir, probe, stft, welch, welch_v1
+    from pyfft_tpu_torch.ops import hilbert as hk
+    return dict(fir=fir.LAUNCHES, welch=welch.LAUNCHES,
+                welch_complex=welch.COMPLEX_LAUNCHES, stft=stft.LAUNCHES,
+                hilbert=hk.LAUNCHES, welch_dft=welch_v1.LAUNCHES,
+                welch_packed=welch.PACKED_LAUNCHES,
+                fir_t=fir.FIR_T_LAUNCHES, **probe.LAUNCHES)
 
 
 def main():
@@ -1092,13 +1256,6 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-
-    def reset_counts():
-        """Every kernel's launch count to 0, before a main path."""
-        fir.LAUNCHES = welch.LAUNCHES = stft.LAUNCHES = hk.LAUNCHES = 0
-        welch_v1.LAUNCHES = welch.PACKED_LAUNCHES = fir.FIR_T_LAUNCHES = 0
-        welch.COMPLEX_LAUNCHES = 0
-        probe.LAUNCHES.update(colsum=0, chain=0)
 
     def bound(flops, nbytes, unit="fp32"):
         """The kernels line's bound_ms and bound_by for this card."""
@@ -2512,9 +2669,12 @@ def main():
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
-        stream_phases(Path(tmp), dev, reset_counts, launches)
+        stream_phases(Path(tmp), dev, launches)
     multitaper_wavelet(dev)
-    mesh_phases(dev, reset_counts, launches)
+    mesh_phases(dev, launches)
+    mesh_fft_phases(dev, smi)
+    import torch.distributed as dist
+    dist.destroy_process_group()
 
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")

@@ -21,8 +21,11 @@ Routes (gates on shapes only):
   other input (N-D, ``nfft != nt``, no split) takes ``torch.fft`` on its
   device.
 
-``mesh=`` raises ``NotImplementedError`` until the FFT half of the mesh
-tier (``hilbert_sharded``) is ported.
+With ``mesh=`` (a mesh with a ``'t'`` axis) :func:`envelope_phase`
+transforms along the last axis over the mesh
+(:func:`pyfft_tpu_torch.parallel.fft.analytic_block`, the four-step or
+Bluestein FFT over all-to-all), reduces each rank's block to envelope and
+phase where it lies, and gathers those over ``'t'``.
 """
 from __future__ import annotations
 
@@ -120,12 +123,15 @@ def envelope_phase(uin, nfft=None, axes=-1, mesh=None, device=None):
     quantities the reference's demod chains consume (``Doppler.py:214-225``
     I/Q magnitude, the instantaneous amplitude and phase), without the
     complex analytic signal crossing to the host.
+
+    With ``mesh`` the transform runs distributed along the LAST axis (any
+    other ``axes`` raises ``ValueError``), zero-padded or trimmed to
+    ``nfft``, on the mesh's devices (``device`` is not read), leading axes
+    batched; every rank of the mesh calls it with the same input and gets
+    the same result.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "envelope_phase(mesh=...) needs hilbert_sharded, the FFT half "
-            "of the mesh tier (ROADMAP Queue 1 item 4b), which is not "
-            "ported yet")
+        return _envelope_phase_mesh(uin, nfft, axes, mesh)
     dev = _device(device, uin)
     u = (uin.to(device=dev, dtype=torch.float32)
          if isinstance(uin, torch.Tensor)
@@ -136,6 +142,23 @@ def envelope_phase(uin, nfft=None, axes=-1, mesh=None, device=None):
         nfft = u.shape[axes]
     env, ph = _envelope_phase_dev(u, int(nfft), axes)
     return _np(env).squeeze(), _np(ph).squeeze()
+
+
+def _envelope_phase_mesh(uin, nfft, axes, mesh):
+    """:func:`envelope_phase` over ``mesh``'s ``'t'`` axis."""
+    from .parallel.fft import analytic_block, gather_blocks
+    u = (torch.atleast_1d(uin.to(torch.float32))
+         if isinstance(uin, torch.Tensor)
+         else np.atleast_1d(np.asarray(uin, dtype=np.float32)))
+    if axes % u.ndim != u.ndim - 1:
+        raise ValueError(
+            "envelope_phase(mesh=...) transforms along the LAST axis "
+            f"(got axes={axes} for ndim={u.ndim}); move the transform axis "
+            "last")
+    z = analytic_block(u, mesh, "t", int(nfft or u.shape[-1]))
+    both = gather_blocks(torch.stack([z.abs(), z.angle()]), mesh)
+    env, ph = both.cpu().numpy()           # split on the host, in NumPy
+    return env.squeeze(), ph.squeeze()
 
 
 def test_hilbert(plotit=False):

@@ -9,19 +9,27 @@ on one group of a :class:`~torch.distributed.device_mesh.DeviceMesh` (the
 - :func:`halo`: the neighbour exchange of the segment and FIR halos, one
   ``dist.batch_isend_irecv`` on the axis;
 - :func:`all_gather`: the results, stacked along a new leading axis in
-  group-rank order.
+  group-rank order;
+- :func:`all_to_all`: the four-step FFT's transposes, one axis' equal
+  chunks traded for another's (``lax.all_to_all(..., tiled=True)``);
+- :func:`all_to_all_v`: the distributed Bluestein's re-blocking between the
+  length-``N`` and the length-``M`` layouts, pieces of any size along the
+  last axis.
 
 Every rank of a group issues the same collectives in the same order,
 whatever its share of the work: a rank that skips one hangs the group.  A
 group of one rank runs its all-reduces and all-gathers too (a one-rank
 NCCL group on a single card runs the whole path); a halo there has no
 neighbour and issues nothing.  Complex tensors travel as
-``torch.view_as_real``.
+``torch.view_as_real``; ``dist.all_to_all_single`` trades equal (or the
+given) chunks of dimension 0 of a contiguous tensor, so the all-to-alls
+move the split axis to the front and copy first.
 
 Inside :func:`recording`, each collective adds one row ``{'op', 'shapes',
 'bytes'}`` under the HLO name the JAX package's audit reports
-(``all-reduce``, ``collective-permute``, ``all-gather``): the payload of
-the exchange (an all-gather's whole result), as
+(``all-reduce``, ``collective-permute``, ``all-gather``, ``all-to-all``):
+the payload of the exchange (an all-gather's or all-to-all's whole
+result), as
 ``pyfft_tpu.parallel.runtime.audit_collectives`` reads it from a result
 shape.  :func:`step` also times the named steps of a call there, with the
 device synchronised at each end; outside :func:`recording` nothing is
@@ -139,4 +147,38 @@ def all_gather(t, group):
     dist.all_gather([_real(p) for p in parts], _real(t), group=group)
     out = torch.stack(parts)
     _log("all-gather", out)
+    return out
+
+
+def all_to_all(t, group, split_axis, concat_axis):
+    """``t``'s ``split_axis`` cut into equal chunks, one a rank of
+    ``group`` (chunk ``j`` to group rank ``j``); returns the chunks received,
+    joined along ``concat_axis`` in group-rank order (``lax.all_to_all``
+    with ``tiled=True``)."""
+    size = dist.get_world_size(group)
+    split_axis %= t.dim()
+    n = t.shape[split_axis]
+    if n % size:
+        raise ValueError(f"axis of {n} does not split into {size} chunks")
+    send = t.unflatten(split_axis, (size, n // size)).movedim(split_axis, 0)
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_real(recv), _real(send), group=group)
+    concat_axis %= t.dim()
+    out = recv.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+    _log("all-to-all", out)
+    return out
+
+
+def all_to_all_v(t, group, send, recv):
+    """Pieces of any size along the last axis of ``t``: its first
+    ``send[0]`` samples to group rank 0, the next ``send[1]`` to rank 1, and
+    so on; returns the ``recv[i]`` samples from each rank ``i``, joined in
+    group-rank order."""
+    src = t[..., :sum(send)].movedim(-1, 0).contiguous()
+    dst = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+    dist.all_to_all_single(_real(dst), _real(src), list(recv), list(send),
+                           group=group)
+    out = dst.movedim(0, -1)
+    _log("all-to-all", out)
     return out

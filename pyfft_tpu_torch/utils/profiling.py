@@ -17,6 +17,8 @@ Counterpart of :mod:`pyfft_tpu.utils.profiling`:
   power limit checked against the rating the book peaks assume),
   :func:`bound_ms` (the least time the card could take for some bytes and
   operations) and :func:`roofline` (the achieved share of a peak);
+- :func:`interconnect_peaks`: book link rates (NVLink a GPU, network a
+  host) for the mesh tier's scaling projections;
 - :func:`measure`: the wall time of a callable, synchronizing the CUDA
   stream after each call;
 - :func:`measure_pipeline_overlap`: the memory, compute and streamed-
@@ -39,6 +41,7 @@ import torch
 __all__ = ["stage", "stage_log", "trace", "fft_flops", "welch_flops",
            "welch_complex_flops", "welch_packed_flops", "fir_flops", "analytic_flops_bytes",
            "device_peaks", "peak_tflops", "bound_ms", "roofline", "measure", "report",
+           "interconnect_peaks",
            "measure_pipeline_overlap"]
 
 
@@ -201,6 +204,41 @@ def device_peaks(kind=None):
     CUDA-core rates on a card.  A card set below its rated power runs
     slower under load than these; state its limit beside any share."""
     return _entry(kind)[:3]
+
+
+# Link book values: (NVLink one-way GB/s a GPU, network GB/s a host).  The
+# H100 SXM: NVLink 900 GB/s both ways a GPU (NVIDIA H100 Tensor Core GPU
+# data sheet), and a DGX H100 host's eight ConnectX-7 ports at 400 Gb/s
+# each, 3200 Gb/s (NVIDIA DGX H100 user guide).  The 'cpu' entry is the JAX
+# package's nominal one.
+_LINK_PEAKS = {
+    "h100 80gb hbm3": (450.0, 400.0),
+    "cpu": (10.0, 10.0),
+}
+
+
+def link_kind(kind=None):
+    """``kind``, or where it is None the device a projection models: the
+    first card's name, and on a world without a card the H100 (the mesh
+    tier's target, as the JAX package's CPU meshes project a v5e)."""
+    if kind is not None:
+        return kind
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_name(0)
+    return "NVIDIA H100 80GB HBM3"
+
+
+def interconnect_peaks(kind=None):
+    """(NVLink one-way GB/s a GPU, network GB/s a host) of ``kind`` (a
+    device name or an ``nvidia-smi --query-gpu=name,power.limit`` line;
+    None: :func:`link_kind`; ``'cpu'``: the nominal host entry).  Raises
+    for a device without book figures."""
+    kind = link_kind(kind)
+    name = str(kind).partition(",")[0].strip().lower()
+    for key, entry in _LINK_PEAKS.items():
+        if key in name:
+            return entry
+    raise ValueError(f"no link figures for the device {kind!r}")
 
 
 def peak_tflops(unit="fp32", kind=None):

@@ -1,12 +1,15 @@
-"""chip_smoke.py's mesh phases alone (24-28), on one card.
+"""chip_smoke.py's mesh phases alone (24-31), on one card.
 
-    python scripts/torch_mesh_phases.py
+    python scripts/torch_mesh_phases.py [fft]
 
-Builds the kernels, then runs ``chip_smoke.mesh_phases``: the mesh tier on
-a one-rank NCCL group against the single-device path, one JSON line a
-phase, then the kernels' launch counts and the seconds taken.  Run it
-from the repository root; it needs a CUDA device.
+Builds the kernels, then runs ``chip_smoke.mesh_phases`` (24-28: the
+Welch half on a one-rank NCCL group against the single-device path) and
+``chip_smoke.mesh_fft_phases`` (29-31: the FFT half), or with ``fft`` the
+latter alone, one JSON line a phase, then the kernels' launch counts and
+the seconds taken.  Run it from the repository root; it needs a CUDA
+device.
 """
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -14,14 +17,20 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 t0 = time.perf_counter()
 import chip_smoke as cs
 import torch
-from pyfft_tpu_torch.ops import _build, fir, stft, welch
+import torch.distributed as dist
+from pyfft_tpu_torch.ops import _build
 _build.library()
 print("build_s", time.perf_counter() - t0, flush=True)
-def reset():
-    fir.LAUNCHES = welch.LAUNCHES = stft.LAUNCHES = 0
-    welch.COMPLEX_LAUNCHES = 0
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                       "--format=csv,noheader"], capture_output=True,
+                      text=True, check=True).stdout.strip().splitlines()[0]
+print(card, flush=True)
 launches = dict(welch=0, welch_complex=0, stft=0, fir=0)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-cs.mesh_phases(torch.device("cuda", 0), reset, launches)
+dev = torch.device("cuda", 0)
+if sys.argv[1:] != ["fft"]:
+    cs.mesh_phases(dev, launches)
+cs.mesh_fft_phases(dev, card)
+dist.destroy_process_group()
 print(launches, "total_s", time.perf_counter() - t0, flush=True)

@@ -2,8 +2,7 @@
 
 ``pyfft_tpu_torch.__all__`` covers ``pyfft_tpu.__all__``, except the names
 ROADMAP.md lists as TPU-only ("Not to port").  The same holds for ``ops``,
-``utils`` and ``parallel``, whose FFT half (Queue 1 item 4b) is not ported
-yet.
+``utils`` and ``parallel``.
 """
 import importlib
 
@@ -17,11 +16,8 @@ import pyfft_tpu_torch
 TPU_ONLY = {"ops": {"mxu_fft", "rfft_pair", "fft_pair", "ifft_pair",
                     "irfft_pair", "dft_matrices"},
             "parallel": {"shard_map", "P", "NamedSharding"}}
-# Queue 1 item 4b: the FFT half of the mesh tier
-MESH = {"parallel": {"fft_sharded", "ifft_sharded", "rfft_sharded",
-                     "irfft_sharded", "hilbert_sharded", "axis_swap",
-                     "four_step_factor", "project_scaling",
-                     "project_scaling_paths"}}
+# names not ported yet: none
+MESH = {}
 
 
 @pytest.mark.parametrize("module", ["", "ops", "utils", "parallel"])

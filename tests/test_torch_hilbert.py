@@ -210,8 +210,25 @@ def test_envelope_phase_demodulates_am():
 
 
 def test_envelope_phase_mesh_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        envelope_phase(np.ones(64), mesh=object())
+    """``mesh=`` runs the distributed transform (the mesh tier's FFT half,
+    tests/test_torch_parallel_fft.py) on a one-rank gloo group: the
+    single-device result, and the ``LAST axis`` error for another axis."""
+    import torch.distributed as dist
+    from pyfft_tpu_torch import parallel as par
+    x = _am(4096, 1e6)
+    env1, ph1 = envelope_phase(x, device="cpu")
+    assert not dist.is_initialized()
+    try:
+        mesh = par.make_mesh(1, 1, device="cpu")
+        env2, ph2 = envelope_phase(x, mesh=mesh)
+        with pytest.raises(ValueError, match="LAST axis"):
+            envelope_phase(np.ones((4, 64)), axes=0, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert env2.dtype == ph2.dtype == np.float32 and env2.shape == (4096,)
+    np.testing.assert_allclose(env2, env1, atol=2e-5 * np.abs(env1).max())
+    dphi = np.angle(np.exp(1j * (ph2.astype(np.float64) - ph1)))
+    np.testing.assert_allclose(dphi, 0.0, atol=1e-4)
 
 
 def test_hilbert_cuda_refuses_cpu_tensors():

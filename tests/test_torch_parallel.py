@@ -16,10 +16,6 @@ fails the tests instead of stalling the suite.
 """
 import importlib.util
 import json
-import os
-import subprocess
-import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -51,43 +47,11 @@ def _cpu_default():
         yield
 
 
-def _run_world(world, tmp):
-    """Start ``world`` worker processes; returns their Popen objects."""
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(HERE.parent)] + [p for p in [env.get("PYTHONPATH")] if p])
-    url = f"file://{tmp}/store"
-    return [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(world), url,
-         str(tmp / "out.npz")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, env=env, cwd=str(tmp))
-        for r in range(world)]
-
-
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Both worlds, run at once: ``{world: (return codes, logs, outputs)}``;
     a world still running after ``WORLD_TIMEOUT_S`` is killed."""
-    procs = {w: (_run_world(w, tmp_path_factory.mktemp(f"world{w}")))
-             for w in mw.CASES}
-    deadline = time.monotonic() + WORLD_TIMEOUT_S
-    out = {}
-    for w, ps in procs.items():
-        rcs, logs = [], []
-        for p in ps:
-            try:
-                log, _ = p.communicate(
-                    timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                for q in ps:
-                    q.kill()
-                log, _ = p.communicate()
-            rcs.append(p.returncode)
-            logs.append(log.decode(errors="replace"))
-        path = Path(ps[0].args[-1])
-        data = dict(np.load(path)) if path.exists() else {}
-        out[w] = (rcs, logs, data)
-    return out
+    return mw.run_worlds("welch", tmp_path_factory, WORLD_TIMEOUT_S)
 
 
 def _world_of(name):
