@@ -111,7 +111,15 @@ own main path inside phase 4.  The paths:
   distributed Bluestein at N = 10**7, M = 2**25, against a complex128
   ``torch.fft.fft`` (phase 30); ``envelope_phase(..., mesh=...)`` on
   config 4's AM signal against the single-device call (phase 31).  This
-  path launches no kernel of the port.
+  path launches no kernel of the port;
+- the top-level entry points (``pyfft_tpu_torch.entry``), last on the same
+  group: ``entry()``'s forward step (kernel B on 4 channels of 2**15,
+  nwins 1024), timed 25 times and traced once, against kernel B's plain
+  version on the same tensors (phase 32); ``dryrun_multichip(1)``, every
+  stage of the JAX dry run on its own shapes against the single-device
+  pipeline, launching kernels A, B (real and complex), C and E, with the
+  collectives it issued and a check that no operation touched a tensor
+  off the card (phase 33).
 
 Every phase prints one JSON line.  Then come the kernels' line
 (``{"kernels": [...]}``, launches counted over the main-path phases only:
@@ -1203,6 +1211,114 @@ def mesh_fft_phases(dev, card, n=1 << 24,
           and env_err <= MESH_ENV_TOL and ph_err <= PHASE_TOL,
           f"mesh envelope_phase: {env.shape}, envelope {env_err}, phase "
           f"{ph_err} rad")
+
+
+def entry_phases(dev, card, launches):
+    """Phases 32-33: the top-level entry points (``pyfft_tpu_torch.entry``).
+    (32) ``entry()``'s forward step on the card (kernel B at 4 channels of
+    2**15 samples, nwins 1024), timed 25 times by CUDA events, against
+    kernel B's plain version on the same tensors; (33)
+    ``dryrun_multichip(1)`` on the one-rank NCCL group that
+    :func:`mesh_phases` started: every stage of the mesh tier on the JAX
+    dry run's shapes, each held against the single-device pipeline, with
+    the launches of kernels A, B (real and complex), C and E, the
+    collectives it issued and the operations it ran off the card (through
+    :func:`mesh_run`).  ``card`` (the ``nvidia-smi`` name and power limit)
+    goes on both lines."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pyfft_tpu_torch import entry as pe
+    from pyfft_tpu_torch.spectral import _onesided_power_scale
+    from pyfft_tpu_torch.ops import welch
+    from pyfft_tpu_torch.utils import profiling
+
+    # ---- phase 32: entry()'s forward step -------------------------------- #
+    fwd, (x, y) = pe.entry()
+    check(x.is_cuda and y.is_cuda, f"entry's inputs on {x.device}")
+    reset_counts()
+    got = fwd(x, y)
+    torch.cuda.synchronize()
+    n = read_counts()
+    check(n["welch"] == 1 and sum(n.values()) == 1,
+          f"entry's forward launched {n}")
+    launches["welch"] += n["welch"]
+    plan, win, s1sq_enbw = pe.flagship_geometry()
+    norm = float(np.float32(1.0 / (s1sq_enbw * plan.navr)))
+    sc = torch.as_tensor(_onesided_power_scale(plan.nfft, plan.nnyquist),
+                         dtype=torch.float32, device=dev)
+
+    def plain():
+        out = welch.welch_plain(x, y, win, plan.nnyquist, norm,
+                                navr=plan.navr, nwins=plan.nwins,
+                                hop=plan.hop, detrend_style=1)
+        return (out[0] * sc, (out[1] * sc).T, (out[2] * sc).T,
+                (out[3] * sc).T)
+    ref = plain()
+    names = ("Pxx", "Pyy", "Pxy_re", "Pxy_im")
+    errs = {k: rel_err(g, r)[0] for k, g, r in zip(names, got, ref)}
+    shapes = [list(g.shape) for g in got]
+    runs = {"ms": time_runs(lambda: fwd(x, y), 25),
+            "plain_ms": time_runs(plain, 25)}
+    prof32 = trace_call(lambda: fwd(x, y), "welch_pair_kernel")
+    nsig = 1 + y.shape[0]
+    ms32, by32 = profiling.bound_ms(
+        profiling.welch_flops(plan.navr, plan.nwins, y.shape[0]),
+        4.0 * nsig * (plan.nsig + 3 * plan.nnyquist), "fp32", kind=card)
+    emit("entry_forward", card=card, nt=plan.nsig, nch=int(y.shape[0]),
+         nwins=plan.nwins, navr=plan.navr, nfreq=plan.nnyquist,
+         shapes=shapes, launches=n["welch"], rel_err_vs_plain=errs,
+         tol=WELCH_TOL,
+         ms=statistics.median(runs["ms"]),
+         plain_ms=statistics.median(runs["plain_ms"]),
+         quartiles_ms={k: statistics.quantiles(v, n=4)
+                       for k, v in runs.items()},
+         reps=25, bound_ms=ms32, bound_by=by32,
+         kernel_device_ms=prof32["kernel_ms"], profile=prof32)
+    check(prof32["h2d_pageable"] == 0,
+          f"entry's forward: {prof32['h2d_pageable']} pageable host -> "
+          f"device copies in a call after the first")
+    check(shapes == [[plan.nnyquist]] + [[plan.nnyquist, 4]] * 3
+          and all(bool(torch.isfinite(g).all().item()) for g in got),
+          f"entry's forward: shapes {shapes} or non-finite values")
+    for k, e in errs.items():
+        check(e <= WELCH_TOL, f"entry's forward {k}: rel err {e} > "
+              f"{WELCH_TOL}")
+    del x, y, got, ref
+
+    # ---- phase 33: dryrun_multichip(1) on the one-rank NCCL group -------- #
+    check(dist.is_initialized() and dist.get_world_size() == 1
+          and dist.get_backend() == "nccl",
+          "phase 33 needs mesh_phases' one-rank NCCL group")
+
+    def dryrun():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            line = pe.dryrun_multichip(1)
+        check(buf.getvalue().strip() == line, f"dry run printed "
+              f"{buf.getvalue()!r}, returned {line!r}")
+        return line
+    t0 = time.perf_counter()
+    line, n, info = mesh_run("dryrun_multichip", dryrun, read_counts, 3)
+    total_s = time.perf_counter() - t0
+    used = ("fir", "welch", "welch_complex", "stft", "welch_dft")
+    ops = {}
+    for r in info["collectives"]:
+        ops[r["op"]] = ops.get(r["op"], 0) + 1
+    emit("dryrun_multichip", card=card, ok_line=line,
+         collective_counts=ops,
+         collective_bytes=sum(r["bytes"] for r in info["collectives"]),
+         phase_s=total_s, **info)
+    check(line.startswith("dryrun_multichip OK: mesh=(1x1), nch=2, "
+                          "nt=4096, navr=31, nfreq=128, checks="),
+          f"dry run line {line!r}")
+    for k in used:
+        check(n[k] > 0, f"the dry run launched kernel {k} {n[k]} times")
+        launches[k] += n[k]
+    check(all(v == 0 for k, v in n.items() if k not in used),
+          f"the dry run launched kernels off its path: {n}")
 
 
 def reset_counts():
@@ -2673,6 +2789,7 @@ def main():
     multitaper_wavelet(dev)
     mesh_phases(dev, launches)
     mesh_fft_phases(dev, smi)
+    entry_phases(dev, smi, launches)
     import torch.distributed as dist
     dist.destroy_process_group()
 

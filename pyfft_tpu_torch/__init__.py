@@ -50,12 +50,12 @@ entries)
 (kernel build and load)            ``ops/_build.py``
 ``filters.py``                     ``filters.py`` (blocked IIR)
 ``spectral.py``                    ``spectral.py``
-``parallel/`` (the Welch half:     ``parallel/`` (``torch.distributed``,
-mesh, welch, fir, stft, runtime)   ``DeviceMesh``; the FFT half to come)
+``parallel/`` (mesh, welch, fir,   ``parallel/`` (``torch.distributed``,
+stft, fft, runtime)                ``DeviceMesh``)
 ``fftanal.py``                     ``fftanal.py``
 ``spectrogram.py``                 ``spectrogram.py``
 ``integrate.py``                   ``integrate.py`` (host NumPy)
-``hilbert.py``                     ``hilbert.py`` (no mesh: the FFT half)
+``hilbert.py``                     ``hilbert.py``
 ``notch.py``, ``deriv.py``,        the same names
 ``laplace.py``, ``ccf.py``,
 ``doppler.py``, ``pca.py``,
@@ -67,6 +67,7 @@ mesh, welch, fir, stft, runtime)   ``DeviceMesh``; the FFT half to come)
 ``utils/profiling.py``             ``utils/profiling.py`` (H100 peaks)
 ``utils/workunits.py``             ``utils/workunits.py`` (copy)
 ``config.py``                      ``config.py`` (+ ``from_reference``)
+``__graft_entry__.py`` (root)      ``entry.py``
 =================================  ======================================
 
 CUDA tensors go through the hand-written kernels in ``csrc/`` (built with
@@ -74,8 +75,9 @@ CUDA tensors go through the hand-written kernels in ``csrc/`` (built with
 version.  The entry points compute on their ``device=`` argument, else on
 their tensors' device, else on the package default
 (``config.set_default_device``), else on the card, and raise where there
-is none: the CPU runs only when asked for.  The rest of the JAX package
-waits for later slices (ROADMAP.md).
+is none: the CPU runs only when asked for.  With the top-level entry
+points (``entry``, ``dryrun_multichip``) the port covers every module of
+the JAX package.
 """
 
 __version__ = "0.1.0"

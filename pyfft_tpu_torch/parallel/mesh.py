@@ -28,6 +28,8 @@ Mesh = DeviceMesh
 
 __all__ = ["make_mesh", "Mesh", "device_counts"]
 
+_MESHES = {}     # the meshes made in the current world (make_mesh)
+
 
 def device_counts():
     """The world size of the default process group where one exists, else
@@ -47,7 +49,8 @@ def make_mesh(ch: int = 1, t: int | None = None, devices=None,
     the card unless the CPU is asked for); without a process group a
     one-rank group is started first (:func:`.runtime.init_distributed`),
     so a single process gets a valid 1x1 mesh.  Every rank of the world
-    calls this, also one outside the mesh (it sits at no coordinate).
+    calls this, also one outside the mesh (it sits at no coordinate).  The
+    same arguments in the same world return the same mesh.
     """
     from .runtime import init_distributed
     dev = resolve_device(device)
@@ -63,7 +66,18 @@ def make_mesh(ch: int = 1, t: int | None = None, devices=None,
     if ch * t > n:
         raise ValueError(f"mesh {ch}x{t} needs {ch * t} devices, have {n}")
     ranks = np.asarray(devices[:ch * t]).reshape(ch, t)
-    return DeviceMesh(dev.type, ranks, mesh_dim_names=("ch", "t"))
+    # one mesh per (device type, ranks) and world: a DeviceMesh starts a
+    # process group per axis (a collective) and indexes its rank table on
+    # the host, so a later call with the same arguments takes it again
+    world = dist.group.WORLD
+    if _MESHES.get("world") is not world:
+        _MESHES.clear()
+        _MESHES["world"] = world
+    key = (dev.type, ranks.shape, tuple(ranks.ravel().tolist()))
+    if key not in _MESHES:
+        _MESHES[key] = DeviceMesh(dev.type, ranks,
+                                  mesh_dim_names=("ch", "t"))
+    return _MESHES[key]
 
 
 def axis_size(mesh, name):

@@ -44,6 +44,7 @@ finalization.
 from __future__ import annotations
 
 import os
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -208,6 +209,14 @@ def _onesided_power_scale(nfft: int, nnyquist: int) -> np.ndarray:
     return s
 
 
+@lru_cache(maxsize=None)
+def _power_scale_on(nfft: int, nnyquist: int, device: str) -> torch.Tensor:
+    """:func:`_onesided_power_scale` in float32 on ``device``, copied there
+    once per geometry."""
+    return torch.as_tensor(_onesided_power_scale(nfft, nnyquist),
+                           dtype=torch.float32, device=device)
+
+
 def _onesided_amp_scale(nfft: int, nnyquist: int) -> np.ndarray:
     """sqrt(2) doubling for one-sided *amplitude* (FFT-coefficient) spectra.
 
@@ -328,13 +337,15 @@ def _kernel_sums(route, x, y, win, nfreq, *, navr, nwins, hop):
 
 def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
                        nfft, nnyquist, onesided, detrend_style, ntmodel):
-    """The kernel Welch paths (:func:`pallas_route`), or None where no
-    kernel's gate holds.
+    """The kernel Welch paths (:func:`pallas_route`) as tensors on the
+    inputs' device, or None where no kernel's gate holds.
 
-    ``x (nt,)``, ``y (nch, nt)`` tensors.  The one-sided bin doubling is a
+    ``x (nt,)``, ``y (nch, nt)`` tensors.  Returns ``(Pxx (nfreq,), Pyy
+    (nfreq, nch), Pxy_re, Pxy_im)`` in float32, averaged and normalised,
+    one-sided doubled or ``fftshift``-ed.  The one-sided bin doubling is a
     *vector* scale, so the scalar ``norm`` handed to the kernel carries
     only ``S1^2*ENBW*navr`` and the vector is applied to the (small)
-    averaged outputs here.  Per-segment arrays are not produced.
+    averaged outputs here.
     """
     from .ops.welch import welch_fir_pallas_fused, welch_pallas3_twosided
     from .ops.welch_packed import welch_pair_packed
@@ -351,20 +362,15 @@ def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
               detrend_style=detrend_style)
     if is_cplx:
         # fused two-sided complex path (the Doppler IQ configuration)
-        Pxx, Pyy, Pr, Pi = welch_pallas3_twosided(x, y, win, norm, **kw)
-
-        def sh(a):
-            return np.fft.fftshift(_np(a), axes=-1)
-        return dict(Pxx=sh(Pxx).astype(np.complex128),
-                    Pyy=sh(Pyy).T.astype(np.complex128),
-                    Pxy=(sh(Pr) + 1j * sh(Pi)).T, **_NO_SEGMENTS)
-    fused = {"B": welch_fir_pallas_fused, "E": welch_pallas_fused,
-             "H": welch_pair_packed}[route]
-    Pxx, Pyy, Pr, Pi = fused(x, y, win, nnyquist, norm, **kw)
-    sc = _onesided_power_scale(nfft, nnyquist).astype(np.float32)
-    return dict(Pxx=(_np(Pxx) * sc).astype(np.complex128),
-                Pyy=(_np(Pyy) * sc).T.astype(np.complex128),
-                Pxy=(_np(Pr) * sc + 1j * (_np(Pi) * sc)).T, **_NO_SEGMENTS)
+        out = welch_pallas3_twosided(x, y, win, norm, **kw)
+        Pxx, Pyy, Pr, Pi = (torch.fft.fftshift(a, dim=-1) for a in out)
+    else:
+        fused = {"B": welch_fir_pallas_fused, "E": welch_pallas_fused,
+                 "H": welch_pair_packed}[route]
+        Pxx, Pyy, Pr, Pi = fused(x, y, win, nnyquist, norm, **kw)
+        sc = _power_scale_on(nfft, nnyquist, str(Pxx.device))
+        Pxx, Pyy, Pr, Pi = Pxx * sc, Pyy * sc, Pr * sc, Pi * sc
+    return Pxx, Pyy.T, Pr.T, Pi.T
 
 
 def _run_welch_core(x_in, y_in, win, s1sq_enbw, *, backend, **static):
@@ -373,7 +379,11 @@ def _run_welch_core(x_in, y_in, win, s1sq_enbw, *, backend, **static):
     if backend == "pallas":
         out = _welch_core_pallas(x_in, y_in.T, win, s1sq_enbw, **static)
         if out is not None:
-            return out
+            # no per-segment arrays on the kernel paths
+            Pxx, Pyy, Pr, Pi = (_np(a) for a in out)
+            return dict(Pxx=Pxx.astype(np.complex128),
+                        Pyy=Pyy.astype(np.complex128), Pxy=Pr + 1j * Pi,
+                        **_NO_SEGMENTS)
     out = _welch_core_xla(x_in, y_in.T, win, s1sq_enbw, **static)
     return {k: _np(v) for k, v in out.items()}
 

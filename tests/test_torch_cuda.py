@@ -14,7 +14,9 @@ import pytest
 import torch
 
 import pyfft_tpu_torch as pt
+from pyfft_tpu_torch import entry as pe
 from pyfft_tpu_torch import segmentation as pseg
+from pyfft_tpu_torch import spectral as psp
 from pyfft_tpu_torch.hilbert import _analytic_factored, envelope_phase
 from pyfft_tpu_torch.ops import fir as pfir
 from pyfft_tpu_torch.ops import hilbert as phk
@@ -1117,3 +1119,42 @@ def test_multitaper_and_cwt_match_the_cpu_on_card(cuda_device):
     W = pt.wavelet.cwt(xd, dt=1e-6)[0]
     assert err(W, pt.wavelet.cwt(x.astype(np.float64), dt=1e-6,
                                  device="cpu")[0]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_entry_forward_matches_kernel_b_plain_on_card(cuda_device):
+    """entry()'s forward on the card launches kernel B once and is within
+    2e-5 of each output's max of kernel B's plain version, in float64 on
+    the same tensors, with the same averaging and one-sided scaling."""
+    fwd, (x, y) = pe.entry()
+    assert x.is_cuda and y.is_cuda
+    before = pw.LAUNCHES
+    got = fwd(x, y)
+    assert pw.LAUNCHES == before + 1
+    plan, win, s1sq_enbw = pe.flagship_geometry()
+    norm = float(np.float32(1.0 / (s1sq_enbw * plan.navr)))
+    ref = pw.welch_plain(x.double(), y.double(), win, plan.nnyquist, norm,
+                         navr=plan.navr, nwins=plan.nwins, hop=plan.hop,
+                         detrend_style=1)
+    sc = torch.as_tensor(psp._onesided_power_scale(plan.nfft, plan.nnyquist),
+                         device=x.device)
+    ref = (ref[0] * sc, (ref[1] * sc).T, (ref[2] * sc).T, (ref[3] * sc).T)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.shape == r.shape
+        assert ((g.double() - r).abs().max() / r.abs().max()).item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_one_rank_on_card(cuda_device):
+    """dryrun_multichip(1) on a one-rank NCCL group it starts and destroys:
+    every stage passes, launching kernels A, B (real and complex), C and
+    E."""
+    import torch.distributed as dist
+    before = (pfir.LAUNCHES, pw.LAUNCHES, pw.COMPLEX_LAUNCHES, pst.LAUNCHES,
+              pv.LAUNCHES)
+    line = pe.dryrun_multichip(1)
+    after = (pfir.LAUNCHES, pw.LAUNCHES, pw.COMPLEX_LAUNCHES, pst.LAUNCHES,
+             pv.LAUNCHES)
+    assert line.startswith("dryrun_multichip OK: mesh=(1x1)")
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert not dist.is_initialized()

@@ -12,6 +12,7 @@ import torch
 
 import pyfft_tpu_torch as pt
 from pyfft_tpu_torch import config
+from pyfft_tpu_torch import entry as pentry
 from pyfft_tpu_torch import segmentation as pseg
 from pyfft_tpu_torch.utils import profiling
 
@@ -33,6 +34,11 @@ def _signals():
 
 
 _NW = dict(navr=15, nwins=512, noverlap=256)    # 4096 samples
+
+
+def _forward(fwd, args):
+    return fwd(*args)
+
 
 _ENTRIES = {
     "fft_pwelch": lambda t, x, y, **kw: pt.fft_pwelch(
@@ -78,6 +84,10 @@ _ENTRIES = {
         **kw),
     "stft_pallas3": lambda t, x, y, **kw: pt.ops.stft_pallas3(
         x, y[None], np.hanning(512), 1.0, **_NW, **kw),
+    # the top-level entry points
+    "entry": lambda t, x, y, **kw: _forward(*pentry.entry(**kw)),
+    "dryrun_multichip": lambda t, x, y, **kw: pentry.dryrun_multichip(
+        1, **kw),
 }
 
 

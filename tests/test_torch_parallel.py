@@ -394,3 +394,22 @@ def test_device_counts_without_a_group():
     assert not dist.is_initialized()
     assert par.device_counts() == torch.cuda.device_count()
     assert par.Mesh is torch.distributed.device_mesh.DeviceMesh
+
+
+def test_make_mesh_returns_the_same_mesh_in_one_world():
+    """The same arguments in one world give the same mesh (no new process
+    groups); another shape a new one; a new world new meshes."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    try:
+        m = par.make_mesh(1, 1)
+        assert par.make_mesh(1, 1) is m
+        assert par.make_mesh(1, 1, devices=[0]) is m
+        assert par.make_mesh(1) is m
+    finally:
+        dist.destroy_process_group()
+    try:
+        m2 = par.make_mesh(1, 1)
+        assert m2 is not m and tuple(m2.get_coordinate()) == (0, 0)
+    finally:
+        dist.destroy_process_group()

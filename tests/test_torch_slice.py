@@ -46,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pyfft_tpu_torch.ops.stft, pyfft_tpu_torch.ops.transform, "
             "pyfft_tpu_torch.fftanal, pyfft_tpu_torch.spectrogram, "
             "pyfft_tpu_torch.integrate, pyfft_tpu_torch.examples, "
-            "pyfft_tpu_torch.plotting\n"
+            "pyfft_tpu_torch.plotting, pyfft_tpu_torch.entry\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pyfft_tpu' or "
             "m.startswith('pyfft_tpu.'))\n"
