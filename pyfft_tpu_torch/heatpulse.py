@@ -641,7 +641,7 @@ class HeatPulseFFT(HeatPulseBase):
         axis)."""
         sig = np.asarray(self.sig)
         refsig = np.asarray(self.refsig)
-        with stage("heatpulse.fft_pwelch", log=False):
+        with stage("heatpulse.fft_pwelch"):
             [self.freq, Pxy, Pxx, Pyy, Cxy, phi, fftinfo] = \
                 _spectral.fft_pwelch(
                     np.asarray(self.tt), refsig, sig,

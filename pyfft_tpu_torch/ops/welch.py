@@ -32,7 +32,12 @@ one-sided bin doubling.
 
 ``LAUNCHES`` counts the launches of kernel B on real signals,
 ``COMPLEX_LAUNCHES`` those on complex signals and ``PACKED_LAUNCHES``
-those of kernel H.  The entries compute on the port's device
+those of kernel H.  In a ``torch.profiler`` trace :func:`welch_cuda`
+marks two ranges (:class:`pyfft_tpu_torch.utils.profiling.stage`), for
+kernels B and H alike: ``welch_cuda.prologue``, the argument checks and
+the enqueue of the means prologue, and ``welch_cuda.launch``, the window,
+taps and twiddles lookups, the library, the buffers, the launch and the
+mirrored bins.  The entries compute on the port's device
 (:func:`pyfft_tpu_torch.config.resolve_device`): ``device=``, else the
 first tensor argument's, else the package default, else the card.
 
@@ -62,6 +67,7 @@ import torch
 
 from . import _build
 from ..config import resolve_device
+from ..utils.profiling import stage
 from .fir import fir_plain, PALLAS_FIR_MAX_TAPS
 
 __all__ = ["welch_fir_pallas3", "welch_fir_pallas_fused",
@@ -245,80 +251,84 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
     use) or both complex64 (two-sided), on one CUDA device; ``packed``
     takes float32 and ``nch <= 1``.  Raises outside the kernel's domain."""
     global LAUNCHES, COMPLEX_LAUNCHES, PACKED_LAUNCHES
-    if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
-            and x.is_cuda and y.device == x.device):
-        raise ValueError("welch_cuda needs x and y on one CUDA device")
-    cplx = x.is_complex()
-    want = torch.complex64 if cplx else torch.float32
-    if x.dtype != want or y.dtype != want:
-        raise ValueError(f"welch_cuda takes float32 or complex64 pairs, got "
-                         f"{x.dtype} and {y.dtype}")
-    if x.dim() != 1 or not x.is_contiguous() or y.dim() != 2 \
-            or y.shape[1] != x.shape[0] or (y.shape[0] and y.stride(1) != 1):
-        raise ValueError(
-            f"welch_cuda takes x (nt,) contiguous and y (nch, nt) with unit "
-            f"time stride, got {tuple(x.shape)} and {tuple(y.shape)} "
-            f"strides {tuple(y.stride())}")
-    nt = x.shape[0]
-    nch = y.shape[0]
-    noverlap = nwins - hop
-    if not _in_domain(nwins, noverlap, navr, taps, detrend_style) \
-            or nch + 1 > 65535 or not 1 <= nfreq <= nwins \
-            or (packed and (cplx or nch > 1)):
-        raise ValueError(
-            f"welch kernel: unsupported geometry nwins={nwins} hop={hop} "
-            f"navr={navr} nch={nch} nfreq={nfreq} detrend={detrend_style} "
-            f"packed={packed} complex={cplx}")
-    if (navr - 1) * hop + nwins > nt:
-        raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
-                         f"fit {nt} samples")
-    win32 = np.ascontiguousarray(np.asarray(win), dtype=np.float32)
-    if win32.shape != (nwins,):
-        raise ValueError(f"window of shape {win32.shape}, need ({nwins},)")
-    taps64 = (np.ones(1) if taps is None
-              else np.asarray(taps, dtype=np.float64).ravel())
-    dev = x.device
-    means = _means(x, y, taps64, detrend_style, cplx)
-    w = _window(win32.tobytes(), str(dev))
-    t = _device_copy(taps64.astype(np.float32).tobytes(), "float32",
-                     str(dev))
-    K = int(taps64.size)
-    tw = _twiddles(int(nwins), str(dev))
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        # complex signals: every bin; real ones: bins 0..nwins/2, the rest
-        # mirrored
-        name, entry, resident = (
-            ("welch", lib.pyfft_welch, lib.pyfft_welch_resident) if cplx
-            else ("welch_pair", lib.pyfft_welch_pair,
-                  lib.pyfft_welch_pair_resident))
-        nbins = nfreq if cplx else min(nfreq, nwins // 2 + 1)
-        cap = resident(int(nwins), K)
-        if cap < 0:
-            _build.check(-cap, f"{name} kernel")
-        ngroups = _pair_groups(int(navr), nch, cap)
-        part = torch.empty((ngroups, nch + 1, 3, nbins), dtype=torch.float64,
-                           device=dev)
-        out = torch.empty((nch + 1, 3, nbins), dtype=torch.float32,
-                          device=dev)
-        # row stride in floats (a complex64 element is two)
-        y_stride = y.stride(0) * (2 if cplx else 1) if nch else 0
-        rc = entry(x.data_ptr(), y.data_ptr() if nch else x.data_ptr(),
-                   y_stride, t.data_ptr(), K, means.data_ptr(), w.data_ptr(),
-                   tw.data_ptr(), part.data_ptr(), out.data_ptr(), nch,
-                   int(nwins), int(hop), int(navr), ngroups, nbins,
-                   float(norm), stream)
-        _build.check(rc, f"{name} kernel")
-        if not cplx:
-            out = _mirror(out, int(nwins), int(nfreq))
-    if packed:
-        PACKED_LAUNCHES += 1
-    elif cplx:
-        COMPLEX_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]
+    with stage("welch_cuda.prologue"):
+        if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                and x.is_cuda and y.device == x.device):
+            raise ValueError("welch_cuda needs x and y on one CUDA device")
+        cplx = x.is_complex()
+        want = torch.complex64 if cplx else torch.float32
+        if x.dtype != want or y.dtype != want:
+            raise ValueError(f"welch_cuda takes float32 or complex64 pairs, "
+                             f"got {x.dtype} and {y.dtype}")
+        if x.dim() != 1 or not x.is_contiguous() or y.dim() != 2 \
+                or y.shape[1] != x.shape[0] \
+                or (y.shape[0] and y.stride(1) != 1):
+            raise ValueError(
+                f"welch_cuda takes x (nt,) contiguous and y (nch, nt) with "
+                f"unit time stride, got {tuple(x.shape)} and "
+                f"{tuple(y.shape)} strides {tuple(y.stride())}")
+        nt = x.shape[0]
+        nch = y.shape[0]
+        noverlap = nwins - hop
+        if not _in_domain(nwins, noverlap, navr, taps, detrend_style) \
+                or nch + 1 > 65535 or not 1 <= nfreq <= nwins \
+                or (packed and (cplx or nch > 1)):
+            raise ValueError(
+                f"welch kernel: unsupported geometry nwins={nwins} hop={hop} "
+                f"navr={navr} nch={nch} nfreq={nfreq} detrend={detrend_style} "
+                f"packed={packed} complex={cplx}")
+        if (navr - 1) * hop + nwins > nt:
+            raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
+                             f"fit {nt} samples")
+        win32 = np.ascontiguousarray(np.asarray(win), dtype=np.float32)
+        if win32.shape != (nwins,):
+            raise ValueError(f"window of shape {win32.shape}, need ({nwins},)")
+        taps64 = (np.ones(1) if taps is None
+                  else np.asarray(taps, dtype=np.float64).ravel())
+        dev = x.device
+        means = _means(x, y, taps64, detrend_style, cplx)
+    with stage("welch_cuda.launch"):
+        w = _window(win32.tobytes(), str(dev))
+        t = _device_copy(taps64.astype(np.float32).tobytes(), "float32",
+                         str(dev))
+        K = int(taps64.size)
+        tw = _twiddles(int(nwins), str(dev))
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            # complex signals: every bin; real ones: bins 0..nwins/2, the
+            # rest mirrored
+            name, entry, resident = (
+                ("welch", lib.pyfft_welch, lib.pyfft_welch_resident) if cplx
+                else ("welch_pair", lib.pyfft_welch_pair,
+                      lib.pyfft_welch_pair_resident))
+            nbins = nfreq if cplx else min(nfreq, nwins // 2 + 1)
+            cap = resident(int(nwins), K)
+            if cap < 0:
+                _build.check(-cap, f"{name} kernel")
+            ngroups = _pair_groups(int(navr), nch, cap)
+            part = torch.empty((ngroups, nch + 1, 3, nbins),
+                               dtype=torch.float64, device=dev)
+            out = torch.empty((nch + 1, 3, nbins), dtype=torch.float32,
+                              device=dev)
+            # row stride in floats (a complex64 element is two)
+            y_stride = y.stride(0) * (2 if cplx else 1) if nch else 0
+            rc = entry(x.data_ptr(), y.data_ptr() if nch else x.data_ptr(),
+                       y_stride, t.data_ptr(), K, means.data_ptr(),
+                       w.data_ptr(), tw.data_ptr(), part.data_ptr(),
+                       out.data_ptr(), nch,
+                       int(nwins), int(hop), int(navr), ngroups, nbins,
+                       float(norm), stream)
+            _build.check(rc, f"{name} kernel")
+            if not cplx:
+                out = _mirror(out, int(nwins), int(nfreq))
+        if packed:
+            PACKED_LAUNCHES += 1
+        elif cplx:
+            COMPLEX_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+        return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]
 
 
 # --------------------------------------------------------------------------- #

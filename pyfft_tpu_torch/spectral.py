@@ -36,10 +36,18 @@ default (``config.set_default_device``), else ``cuda``; without a card
 that last step raises, so the CPU runs only when asked for.
 
 In a ``torch.profiler`` trace, ``fft_pwelch`` marks two ranges
-(:func:`pyfft_tpu_torch.utils.profiling.stage`): ``fft_pwelch.h2d``, the
+(:class:`pyfft_tpu_torch.utils.profiling.stage`): ``fft_pwelch.h2d``, the
 inputs to their device, and ``fft_pwelch.device_core``, the transform path
 up to the averaged spectra on the host; the rest of the call is the host
-finalization.
+finalization.  ``welch_filtered_cross_spectra`` marks the whole call with
+its own name and, inside it, ``welch_filtered_cross_spectra.args`` (the
+device, the tensors, the taps and window as NumPy, S1 and ENBW, the gate)
+and, on the kernel path, ``welch_filtered_cross_spectra.finalize`` (the
+copies back, the one-sided scale, ``Pxy`` and ``freq``); between the two,
+kernel B's wrapper marks ``welch_cuda.prologue`` and ``welch_cuda.launch``
+(:mod:`pyfft_tpu_torch.ops.welch`).  Each copy of a tensor off the CPU to
+the host (``_np``) is a ``copy.d2h`` range, with its wait.  Without a
+running profiler no range is opened.
 """
 from __future__ import annotations
 
@@ -83,9 +91,14 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _np(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
+    """``a`` as a NumPy array; a tensor off the CPU is copied to the host
+    (a ``copy.d2h`` range, which waits for the work that writes it)."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    if a.device.type == "cpu":
+        return a.detach().numpy()
+    with stage("copy.d2h"):
         return a.detach().cpu().numpy()
-    return np.asarray(a)
 
 
 # --------------------------------------------------------------------------- #
@@ -497,49 +510,54 @@ def welch_filtered_cross_spectra(x, y, taps, win, plan: seg.SegmentPlan,
     :func:`welch_cross_spectra`.  Returns the same dict contract (averaged
     spectra; per-segment arrays are ``None`` on the fused path).
     """
-    from .ops.welch import welch_fir_pallas_fused, pallas_welch2_applicable
+    with stage("welch_filtered_cross_spectra"):
+        from .ops.welch import welch_fir_pallas_fused, pallas_welch2_applicable
 
-    dev = _device(device, x, y)
-    x = _tensor(x, dev)
-    y2 = _tensor(y, dev)
-    if y2.dim() == 1:
-        y2 = y2[None]
-    taps_np = np.asarray(taps, np.float64)
-    win_np = np.asarray(win)
-    s1 = seg.get_s1(win_np)
-    enbw = seg.get_enbw(fs, s1, seg.get_s2(win_np))
-    backend = fft_backend
-    if backend not in ("xla", "mxu", "pallas"):
-        backend = "pallas" if dev.type == "cuda" else "xla"
-    if (backend == "pallas"
-            and not x.is_complex() and not y2.is_complex()
-            and detrend_style in (0, 1)
-            and pallas_welch2_applicable(plan.nwins, plan.noverlap,
-                                         plan.navr, y2.shape[0], taps_np,
-                                         detrend_style)):
-        norm = np.float32(1.0 / (s1 ** 2 * enbw * plan.navr))
-        Pxx, Pyy, Pr, Pi = welch_fir_pallas_fused(
-            x, y2, win_np, plan.nnyquist, norm, navr=plan.navr,
-            nwins=plan.nwins, noverlap=plan.noverlap, taps=taps_np,
-            detrend_style=int(detrend_style))
-        sc = _onesided_power_scale(plan.nfft, plan.nnyquist)
-        out = dict(Pxx=_np(Pxx) * sc,
-                   Pyy=(_np(Pyy) * sc).T,
-                   Pxy=((_np(Pr) + 1j * _np(Pi)) * sc).T, **_NO_SEGMENTS)
-        freq = np.fft.fftfreq(plan.nfft, 1.0 / fs)
-        out["freq"] = freq[:plan.nnyquist]
-        return out
-    from .filters import _fir_filter
-    from .ops.fir import PALLAS_FIR_MAX_TAPS
-    # on the card the filter-first route filters with kernel A, the role
-    # the FIR kernel plays as the feeder of the JAX package's unfused path
-    fir_backend = ("pallas" if dev.type == "cuda"
-                   and taps_np.size <= PALLAS_FIR_MAX_TAPS else "os")
-    xf = _fir_filter(x, taps_np, backend=fir_backend)
-    yf = _fir_filter(y2, taps_np, backend=fir_backend)
-    return welch_cross_spectra(xf, yf, win_np, plan, fs, onesided=True,
-                               detrend_style=detrend_style,
-                               fft_backend=backend)
+        with stage("welch_filtered_cross_spectra.args"):
+            dev = _device(device, x, y)
+            x = _tensor(x, dev)
+            y2 = _tensor(y, dev)
+            if y2.dim() == 1:
+                y2 = y2[None]
+            taps_np = np.asarray(taps, np.float64)
+            win_np = np.asarray(win)
+            s1 = seg.get_s1(win_np)
+            enbw = seg.get_enbw(fs, s1, seg.get_s2(win_np))
+            backend = fft_backend
+            if backend not in ("xla", "mxu", "pallas"):
+                backend = "pallas" if dev.type == "cuda" else "xla"
+            fused = (backend == "pallas"
+                     and not x.is_complex() and not y2.is_complex()
+                     and detrend_style in (0, 1)
+                     and pallas_welch2_applicable(plan.nwins, plan.noverlap,
+                                                  plan.navr, y2.shape[0],
+                                                  taps_np, detrend_style))
+        if fused:
+            norm = np.float32(1.0 / (s1 ** 2 * enbw * plan.navr))
+            Pxx, Pyy, Pr, Pi = welch_fir_pallas_fused(
+                x, y2, win_np, plan.nnyquist, norm, navr=plan.navr,
+                nwins=plan.nwins, noverlap=plan.noverlap, taps=taps_np,
+                detrend_style=int(detrend_style))
+            with stage("welch_filtered_cross_spectra.finalize"):
+                sc = _onesided_power_scale(plan.nfft, plan.nnyquist)
+                out = dict(Pxx=_np(Pxx) * sc,
+                           Pyy=(_np(Pyy) * sc).T,
+                           Pxy=((_np(Pr) + 1j * _np(Pi)) * sc).T,
+                           **_NO_SEGMENTS)
+                freq = np.fft.fftfreq(plan.nfft, 1.0 / fs)
+                out["freq"] = freq[:plan.nnyquist]
+            return out
+        from .filters import _fir_filter
+        from .ops.fir import PALLAS_FIR_MAX_TAPS
+        # on the card the filter-first route filters with kernel A, the role
+        # the FIR kernel plays as the feeder of the JAX package's unfused path
+        fir_backend = ("pallas" if dev.type == "cuda"
+                       and taps_np.size <= PALLAS_FIR_MAX_TAPS else "os")
+        xf = _fir_filter(x, taps_np, backend=fir_backend)
+        yf = _fir_filter(y2, taps_np, backend=fir_backend)
+        return welch_cross_spectra(xf, yf, win_np, plan, fs, onesided=True,
+                                   detrend_style=detrend_style,
+                                   fft_backend=backend)
 
 
 # --------------------------------------------------------------------------- #
@@ -657,7 +675,7 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
         tbounds = [tvec[0], tvec[-1]]
 
     dev = _device(device, sigx, sigy)
-    with stage("fft_pwelch.h2d", log=False):
+    with stage("fft_pwelch.h2d"):
         sigx = _tensor(sigx, dev)
         if sigy is None:
             # auto-spectra shorthand (reference fft_analysis.py:1714)
@@ -797,7 +815,7 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
         plan = seg.SegmentPlan(nsig=int(y_in.shape[0]), nwins=int(nwins),
                                noverlap=int(noverlap), navr=int(Navr),
                                nfft=int(nfft), nnyquist=int(Nnyquist))
-        with stage("fft_pwelch.device_core", log=False):
+        with stage("fft_pwelch.device_core"):
             freq, Pxx, Pyy_s, Pxy_s = par.welch_psd_sharded(
                 x_in, y_in.T, win, plan, Fs, mesh, onesided=bool(onesided),
                 detrend_style=int(detrend_style), fft_backend=fft_backend,
@@ -819,7 +837,7 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
             print("using the batched device Welch pipeline "
                   f"({resolve_fft_backend(fft_backend)} transform path "
                   f"on {dev})")
-        with stage("fft_pwelch.device_core", log=False):
+        with stage("fft_pwelch.device_core"):
             out = _run_welch_core(x_in, y_in, win,
                                   fftinfo.S1 ** 2 * fftinfo.ENBW,
                                   backend=resolve_fft_backend(fft_backend),

@@ -2,9 +2,9 @@
 
 Counterpart of :mod:`pyfft_tpu.utils.profiling`:
 
-- :func:`stage`: ``torch.profiler.record_function`` plus the host clock,
-  so pipeline stages show up named in profiler traces and in the module's
-  log (:func:`stage_log`);
+- :class:`stage`: a ``torch.profiler.record_function`` range while a
+  profiler runs (and nothing otherwise), so pipeline stages show up named
+  in profiler traces;
 - :func:`trace`: a ``torch.profiler`` capture of a block (CPU, and CUDA
   where a card is present), written as a Chrome trace;
 - FLOP models of the hot chains (:func:`fft_flops`, :func:`welch_flops`,
@@ -38,33 +38,41 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["stage", "stage_log", "trace", "fft_flops", "welch_flops",
+__all__ = ["stage", "trace", "fft_flops", "welch_flops",
            "welch_complex_flops", "welch_packed_flops", "fir_flops", "analytic_flops_bytes",
            "device_peaks", "peak_tflops", "bound_ms", "roofline", "measure", "report",
            "interconnect_peaks",
            "measure_pipeline_overlap"]
 
 
-_LOG = []
+class stage:
+    """Named pipeline stage, ``with stage(name): ...``: a
+    ``record_function`` range (a ``user_annotation`` in a
+    ``torch.profiler`` trace) while a profiler runs, and nothing (no range,
+    no clock read) while none does.  A range that launches work ends when
+    the launches are queued, not when the card finishes them.
 
+    The range is entered as ``torch.profiler.record_function`` enters it,
+    but without the two dispatched operators that class calls on entry and
+    exit, which cost as much again and leave a gap of host time at each
+    edge of a nested range that no range names."""
 
-@contextlib.contextmanager
-def stage(name, log=True):
-    """Named pipeline stage: a ``record_function`` range in profiler traces
-    and a host wall-clock record in the module log (``profiling._LOG``).
-    The clock does not synchronize the card: a stage that launches work
-    ends when the launches are queued."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
-        yield
-    dt = time.perf_counter() - t0
-    if log:
-        _LOG.append({"stage": name, "wall_s": dt})
+    __slots__ = ("name", "_handle")
 
+    def __init__(self, name):
+        self.name = name
+        self._handle = None
 
-def stage_log():
-    """The accumulated [(stage, wall_s)] records (host-side, append-only)."""
-    return list(_LOG)
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self._handle = torch.autograd._record_function_with_args_enter(
+                self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._handle is not None:
+            torch.autograd._record_function_with_args_exit(self._handle)
+            self._handle = None
 
 
 @contextlib.contextmanager

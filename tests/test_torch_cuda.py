@@ -1158,3 +1158,51 @@ def test_dryrun_multichip_one_rank_on_card(cuda_device):
     assert line.startswith("dryrun_multichip OK: mesh=(1x1)")
     assert all(a > b for a, b in zip(after, before)), (before, after)
     assert not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_resident_chain_marks_its_stages_on_card(cuda_device, tmp_path):
+    """A profiled call of welch_filtered_cross_spectra on signals already on
+    the card, after a warm call: the call's range holds its arguments,
+    kernel B's prologue and launch and the finalization, in that order,
+    and the finalization the four copies back (Pxx, Pyy, Pxy's two parts);
+    the call launches kernel B once and copies nothing from the host."""
+    import json
+    rng = np.random.default_rng(21)
+    nt, nch = 1 << 20, 8
+    x = torch.as_tensor(rng.standard_normal(nt), dtype=torch.float32,
+                        device=cuda_device)
+    y = torch.as_tensor(rng.standard_normal((nch, nt)), dtype=torch.float32,
+                        device=cuda_device)
+    taps = rng.standard_normal(129) / 129
+    plan = pseg.plan_segments(nt, nwins=2048, windowoverlap=0.5)
+    win = np.hanning(2048)
+
+    def call():
+        return pt.welch_filtered_cross_spectra(x, y, taps, win, plan, 1e6)
+
+    call()
+    torch.cuda.synchronize()
+    before = pw.LAUNCHES
+    with pprof.trace(tmp_path):
+        out = call()
+    assert pw.LAUNCHES == before + 1
+    assert out["Pxy"].shape == (plan.nnyquist, nch)
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") == "user_annotation"),
+                   key=lambda s: (s[1], -s[2]))
+    copies = [s for s in spans if s[0] == "copy.d2h"]
+    stages = [s for s in spans if s[0] != "copy.d2h"]
+    outer = "welch_filtered_cross_spectra"
+    assert [s[0] for s in stages] == [
+        outer, f"{outer}.args", "welch_cuda.prologue", "welch_cuda.launch",
+        f"{outer}.finalize"]
+    (_, lo, hi), *inner = stages
+    assert all(lo <= s <= e <= hi for _, s, e in inner)
+    _, flo, fhi = stages[-1]
+    assert len(copies) == 4
+    assert all(flo <= s <= e <= fhi for _, s, e in copies)
+    assert not [e["name"] for e in events if e.get("cat") == "gpu_memcpy"
+                and "HtoD" in e["name"]]

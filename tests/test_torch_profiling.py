@@ -216,14 +216,12 @@ def test_probe_kernels_refuse_cpu_tensors():
 
 
 def test_stage_log_and_measure():
-    n0 = len(prof.stage_log())
+    # a stage keeps no log of its own (its range in a trace is the
+    # record) and runs its block with no profiler running
+    assert not hasattr(prof, "stage_log")
     with prof.stage("unit.stage"):
-        torch.ones(10).sum()
-    with prof.stage("unit.unlogged", log=False):
-        pass
-    log = prof.stage_log()
-    assert len(log) == n0 + 1 and log[-1]["stage"] == "unit.stage"
-    assert log[-1]["wall_s"] >= 0
+        total = torch.ones(10).sum()
+    assert total.item() == 10
     assert prof.measure(torch.ones, 100, iters=2, warmup=1) > 0
 
 
