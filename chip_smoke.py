@@ -1327,7 +1327,7 @@ def reset_counts():
     from pyfft_tpu_torch.ops import hilbert as hk
     fir.LAUNCHES = welch.LAUNCHES = stft.LAUNCHES = hk.LAUNCHES = 0
     welch_v1.LAUNCHES = welch.PACKED_LAUNCHES = fir.FIR_T_LAUNCHES = 0
-    welch.COMPLEX_LAUNCHES = 0
+    welch.COMPLEX_LAUNCHES = welch.X_PREFILTERS = 0
     probe.LAUNCHES.update(colsum=0, chain=0)
 
 
@@ -1516,8 +1516,9 @@ def main():
     t0 = time.perf_counter()
     out = pt.welch_filtered_cross_spectra(x0, y0, taps0, win, plan, FS)
     wall_fused = time.perf_counter() - t0
-    check(welch.LAUNCHES == 1, f"fused chain launched kernel B "
-          f"{welch.LAUNCHES} times")
+    check(welch.LAUNCHES == 1 and fir.LAUNCHES == welch.X_PREFILTERS == 1,
+          f"fused chain launched kernel B {welch.LAUNCHES} times, kernel A "
+          f"{fir.LAUNCHES} (x filtered ahead {welch.X_PREFILTERS} times)")
     freq = out["freq"]
     ipk = np.argmax(np.abs(out["Pyy"]), axis=0)          # per channel
     df = FS / nwins
@@ -2513,9 +2514,10 @@ def main():
     out16 = pt.welch_filtered_cross_spectra(x0[:nt16a], y0[:, :nt16a], taps0,
                                             win16, plan16, FS)
     wall16 = time.perf_counter() - t0
-    check(welch.LAUNCHES == 1 and fir.LAUNCHES == 0,
+    check(welch.LAUNCHES == 1 and fir.LAUNCHES == welch.X_PREFILTERS == 1,
           f"the v2 geometry launched kernel B {welch.LAUNCHES} times, "
-          f"kernel A {fir.LAUNCHES} times")
+          f"kernel A {fir.LAUNCHES} times (x filtered ahead "
+          f"{welch.X_PREFILTERS} times)")
     launches["welch_v2"] = welch.LAUNCHES
     ipk16 = np.argmax(np.abs(out16["Pyy"]), axis=0)
     fpk16 = out16["freq"][ipk16]

@@ -3,7 +3,12 @@
 //
 // Replaces pyfft_tpu/ops/pallas_fir.py::_fir_kernel (launched from
 // _fir_call), which computes the same filter as banded-Toeplitz matmuls on
-// 128-lane rows with ceil((K-1)/128) halo rows.
+// 128-lane rows with ceil((K-1)/128) halo rows.  It also feeds kernel B
+// (welch_pair.cu) the filtered reference: with two or more real channels
+// and a filter, ops/welch.py filters x here once a call and kernel B's
+// channel blocks read that row instead of each filtering x again; fir4
+// makes the products kernel B's ring fill would, in its order, so the
+// spectra keep their bits.
 //
 // What bounds it on the card: 2*K flops per output against 8 bytes of
 // device traffic (one read of x, one write of y), so for K >= 16 it is

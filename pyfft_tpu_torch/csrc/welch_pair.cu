@@ -14,13 +14,18 @@
 // and accumulates, for bins 0..N/2 of the transforms,
 //   col 0:      |X|^2
 //   col c + 1:  |Y_c|^2,  Re(Y_c conj X),  Im(Y_c conj X)
-// where X is the reference x's transform.  The filtered signal never goes
-// to device memory.
+// where X is the reference x's transform.  The filtered channels never go
+// to device memory.  With two or more channels and a filter, x is filtered
+// once a call ahead of the kernel, by kernel A (fir.cu, fir4, the same
+// products in the same order), into a row `xf` that the blocks read; else
+// (xf null) each block filters x itself.
 //
 // How segments map to FFTs (one complex FFT per unit):
 //   pair (nch >= 1): unit s of channel c is Z = FFT(x_s + i y_{c,s}),
 //     X_k = (Z_k + conj Z_{N-k}) / 2, Y_k = (Z_k - conj Z_{N-k}) / (2i).
 //     Every channel's blocks transform x again; only channel 1's keep |X|^2.
+//     With xf, a channel's block reads x's span filtered and filters y_c
+//     alone.
 //   auto (nch = 0): unit p is Z = FFT(x_{2p} + i x_{2p+1}), split the same
 //     way into two spectra whose powers are added.  An odd navr leaves the
 //     last segment alone, with a zero imaginary part.
@@ -32,13 +37,15 @@
 // accuracy it would have alone.
 //
 // What bounds it on the card.  At bench config 0 (8 channels of 2^25
-// samples, N = 2048, hop 1024, 129 taps) each channel's blocks filter x and
-// y_c once each, 2 * hop * K FMAs a unit (6.9e10 in all), and run 262k
-// transforms of 2048 points with their float64 sums; the signals are read
-// about once per channel, mostly from L2.  Unblocked, the filter was
-// bound by shared-memory loads (one or two per FMA); blocked, the
-// transforms and the barriers between a unit's phases take most of the
-// time (PERF.md).  Design:
+// samples, N = 2048, hop 1024, 129 taps) each channel's blocks filter y_c
+// once, hop * K FMAs a unit (3.5e10 in all, and 4.3e9 in kernel A for x;
+// filtering x in every channel's blocks took 6.9e10), and run 262k
+// transforms of 2048 points with their float64 sums; the signals, and
+// filtered x, are read about once per channel, mostly from L2.
+// Unblocked, the filter was bound by shared-memory loads (one or two per
+// FMA); blocked, its instructions are still about 60% of a unit's issue
+// slots (cheaper loads and an overlap-save fill moved nothing: PERF.md),
+// so the lever is how many it issues.  Design:
 // - blocks of N/16 threads (fft_reg.cuh's register-radix Stockham FFT: 16
 //   points a thread, log16 N passes through padded shared memory, natural
 //   order out); persistent blocks over (segment group, channel) items, as
@@ -55,7 +62,9 @@
 //   Threads read the ring at consecutive times, so neighbouring threads hit
 //   neighbouring banks and the ring needs no padding.  The raw samples of
 //   the new span (up to N + K - 1 per sequence) are staged in the FFT's
-//   buffer, which is free until the first pass stores.
+//   buffer, which is free until the first pass stores.  With xf, x's new
+//   slots are loaded from xf (coalesced) and only y_c is staged and
+//   filtered.
 // - the filter is register-blocked (fir.cuh::fir4, which kernels A and I
 //   run too): a thread makes 4 consecutive outputs of both sequences from
 //   16-byte loads, one of 4 taps (a broadcast) and one of 4 samples per
@@ -64,14 +73,16 @@
 // - at N = 16384 the ring (256 KB) and the FFT buffer (139 KB) do not fit
 //   in the 227 KB of a block together: there each unit filters its whole
 //   span (N + K - 1 staged samples a sequence) straight into the first
-//   pass's registers with fir.cuh's fir_pair.
+//   pass's registers with fir.cuh's fir_pair (with xf: x's span read from
+//   xf, y's filtered with fir_point).
 // - per-bin sums in float64 registers (8 bin pairs j, N - j a thread; bin
 //   N/2 in shared memory, owned by thread 0); each item writes its
 //   group's partials in the (ngroups, nch + 1, 3, nbins) layout, which
 //   sum_partials (reduce.cuh) sums in a fixed order and scales by `norm`.
-//   At N = 128, 256 and 1024 to 8192 nothing spills (128 registers); the
-//   sums spill 632 bytes at N = 16384 (1024 threads, 64 registers a
-//   thread), 80 at 512 and 120-332 at N <= 64 (ptxas, the build.log).
+//   At N = 128, 256 and 1024 to 4096 nothing spills (128 registers); the
+//   sums spill 608 bytes at N = 16384 (1024 threads, 64 registers a
+//   thread), 100 at 8192, 104 at 512 and 120-340 at N <= 64 (ptxas, the
+//   build.log).
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -201,7 +212,8 @@ __device__ __forceinline__ void store(double* part, int g, int c, int nch,
 
 template <int LOGN>
 __global__ void __launch_bounds__(block_threads(LOGN), min_blocks(LOGN))
-welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
+welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ xf,
+                  const float* __restrict__ y,
                   long long y_row_stride, const float* __restrict__ taps_g,
                   int K, const float* __restrict__ means,
                   const float* __restrict__ win,
@@ -230,6 +242,8 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
     // (the first read of taps follows an item's first barrier)
 
     const bool pair = nch > 0;
+    // x filtered ahead (kernel A): its slots are read, only y_c filtered
+    const bool xpre = pair && xf != nullptr;
     const int ncols = pair ? nch : 1;
     const int nunits = pair ? navr : (navr + 1) / 2;
     const int per_group = (nunits + ngroups - 1) / ngroups;
@@ -279,13 +293,24 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     if (to > sa + len) to = sa + len;
                     if (to > group_hi) to = group_hi;
                     const int nnew = static_cast<int>(to - from);
-                    stage<T>(raw, x, from, nnew + K - 1, K);
-                    if (pair)
-                        stage<T>(raw + seq, sb_sig, from, nnew + K - 1, K);
+                    if (xpre) {
+                        // the previous unit's last barrier freed the slots
+                        for (int j = t; j < nnew; j += T)
+                            ring[static_cast<int>((from + j) & mask)] =
+                                __ldg(xf + from + j) - mx;
+                        stage<T>(raw, sb_sig, from, nnew + K - 1, K);
+                    } else {
+                        stage<T>(raw, x, from, nnew + K - 1, K);
+                        if (pair)
+                            stage<T>(raw + seq, sb_sig, from, nnew + K - 1,
+                                     K);
+                    }
                     __syncthreads();
                     for (int j0 = 4 * t; j0 < nnew; j0 += 4 * T) {
                         float fa[4], fb[4];
-                        if (pair)
+                        if (xpre)
+                            fir4<false>(raw, raw, rtaps, K, j0, fb, fa);
+                        else if (pair)
                             fir4<true>(raw, raw + seq, rtaps, K, j0, fa, fb);
                         else
                             fir4<false>(raw, raw, rtaps, K, j0, fa, fb);
@@ -294,7 +319,7 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
                             if (j0 + i >= nnew) break;
                             const int slot =
                                 static_cast<int>((from + j0 + i) & mask);
-                            ring[slot] = fa[i] - mx;
+                            if (!xpre) ring[slot] = fa[i] - mx;
                             if (pair) ring_b[slot] = fb[i] - mb;
                         }
                     }
@@ -312,14 +337,19 @@ welch_pair_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 }
             } else {
                 // the whole span of each sequence, filtered into registers
-                stage<T>(raw, x, sa, N + K - 1, K);
+                // (x's read from xf where it was filtered ahead)
+                if (!xpre) stage<T>(raw, x, sa, N + K - 1, K);
                 if (has_b) stage<T>(raw + seq, sb_sig, sb, N + K - 1, K);
                 __syncthreads();
 #pragma unroll
                 for (int r = 0; r < P; ++r) {
                     const int n = t + r * T;
                     const float w = __ldg(win + n);
-                    if (has_b) {
+                    if (xpre) {
+                        v[r] = make_float2(
+                            (__ldg(xf + sa + n) - mx) * w,
+                            (fir_point(raw + seq + n, taps, K) - mb) * w);
+                    } else if (has_b) {
                         const float2 f =
                             fir_pair(raw + n, raw + seq + n, taps, K);
                         v[r] = make_float2((f.x - mx) * w, (f.y - mb) * w);
@@ -411,7 +441,8 @@ cudaError_t resident(int K, int* out) {
 }
 
 template <int LOGN>
-cudaError_t launch(const float* x, const float* y, long long y_row_stride,
+cudaError_t launch(const float* x, const float* xf, const float* y,
+                   long long y_row_stride,
                    const float* taps, int K, const float* means,
                    const float* win, const float2* tw, double* part, int hop,
                    int navr, int nch, int ngroups, int nbins,
@@ -424,8 +455,8 @@ cudaError_t launch(const float* x, const float* y, long long y_row_stride,
     welch_pair_kernel<LOGN>
         <<<static_cast<unsigned>(items < cap ? items : cap),
            block_threads(LOGN), smem_bytes(LOGN, K), stream>>>(
-            x, y, y_row_stride, taps, K, means, win, tw, part, hop, navr, nch,
-            ngroups, nbins);
+            x, xf, y, y_row_stride, taps, K, means, win, tw, part, hop, navr,
+            nch, ngroups, nbins);
     return cudaGetLastError();
 }
 
@@ -461,15 +492,17 @@ extern "C" int pyfft_welch_pair_resident(int nwins, int K) {
     return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// x: reference signal (nt,) float32; y: nch real signals with row stride
-// `y_row_stride` floats (nch = 0: x alone, segments paired with each
-// other).  taps: (K,) float32.  means: (nch + 1,) float32, reference first.
-// win: (nwins,) float32.  tw: (nwins/2,) complex64, exp(-2 pi i m /
-// nwins).  part: (ngroups, nch + 1, 3, nbins) float64 scratch.  out: (nch +
-// 1, 3, nbins) float32, nbins <= nwins/2 + 1.  The caller checks that the
-// segments fit the signal.  Returns cudaGetLastError() after the second
-// launch (or the first error).
-extern "C" int pyfft_welch_pair(const float* x, const float* y,
+// x: reference signal (nt,) float32; xf: null, or x filtered by the taps
+// (nt,) float32 (kernel A's output; read for nch >= 1 only); y: nch real
+// signals with row stride `y_row_stride` floats (nch = 0: x alone,
+// segments paired with each other).  taps: (K,) float32.  means: (nch +
+// 1,) float32, reference first.  win: (nwins,) float32.  tw: (nwins/2,)
+// complex64, exp(-2 pi i m / nwins).  part: (ngroups, nch + 1, 3, nbins)
+// float64 scratch.  out: (nch + 1, 3, nbins) float32, nbins <= nwins/2 +
+// 1.  The caller checks that the segments fit the signal.  Returns
+// cudaGetLastError() after the second launch (or the first error).
+extern "C" int pyfft_welch_pair(const float* x, const float* xf,
+                                const float* y,
                                 long long y_row_stride, const float* taps,
                                 int K, const float* means, const float* win,
                                 const void* tw, double* part, float* out,
@@ -488,8 +521,8 @@ extern "C" int pyfft_welch_pair(const float* x, const float* y,
     switch (logN) {
 #define PYFFT_WELCH_PAIR_CASE(L)                                              \
     case L:                                                                   \
-        e = launch<L>(x, y, y_row_stride, taps, K, means, win, t, part, hop, \
-                      navr, nch, ngroups, nbins, s);                          \
+        e = launch<L>(x, xf, y, y_row_stride, taps, K, means, win, t, part,  \
+                      hop, navr, nch, ngroups, nbins, s);                     \
         break;
         PYFFT_WELCH_PAIR_CASE(4) PYFFT_WELCH_PAIR_CASE(5)
         PYFFT_WELCH_PAIR_CASE(6) PYFFT_WELCH_PAIR_CASE(7)

@@ -8,10 +8,11 @@ computes ``np.convolve(x[c], taps, 'full')[:nt]`` for every channel of
 - on a CPU tensor it runs :func:`fir_plain`, in the tensor's own dtype.
 
 A CUDA tensor never falls back to the plain version: the kernel launches or
-the call raises.  ``LAUNCHES`` counts the launches of kernel A.  The
-entries compute on the port's device
-(:func:`pyfft_tpu_torch.config.resolve_device`): ``device=``, else the
-first tensor argument's, else the package default, else the card.
+the call raises.  ``LAUNCHES`` counts the launches of kernel A, also those
+by which kernel B's wrapper filters its reference ahead
+(:mod:`pyfft_tpu_torch.ops.welch`).  The entries compute on the port's
+device (:func:`pyfft_tpu_torch.config.resolve_device`): ``device=``, else
+the first tensor argument's, else the package default, else the card.
 
 ``tile_rows`` / ``untile_rows`` / ``fir_pallas_tiled`` are thin aliases of
 the JAX package's row-view entries.  The ``(nch, nrows, 128)`` row view is

@@ -16,8 +16,12 @@ one-sided bin doubling.
   paired with each channel in one complex FFT, each sequence scaled by its
   own power of two, each span filtered once per block), complex ones
   ``csrc/welch.cu`` (one segment a transform, x's and a channel's
-  segment transformed side by side in one block).  The filtered signal
-  never reaches device memory.  The per-signal means of
+  segment transformed side by side in one block).  The filtered channels
+  never reach device memory.  With two or more real channels and a filter
+  (:func:`_prefilters_x`; not kernel H) the wrapper first filters x alone
+  with kernel A (``csrc/fir.cu``) into a scratch row that kernel B's
+  channel blocks read, so x is filtered once a call, not once per
+  channel, with the same bits.  The per-signal means of
   the filtered signals come from the unfiltered sums by the moment
   identity ``sum(conv(x, t)[:nt]) = sum_k t_k (S - T_k)`` (``T_k`` the sum
   of the last ``k`` samples), an O(C*K) float64 prologue in plain torch, as
@@ -32,12 +36,15 @@ one-sided bin doubling.
 
 ``LAUNCHES`` counts the launches of kernel B on real signals,
 ``COMPLEX_LAUNCHES`` those on complex signals and ``PACKED_LAUNCHES``
-those of kernel H.  In a ``torch.profiler`` trace :func:`welch_cuda`
-marks two ranges (:class:`pyfft_tpu_torch.utils.profiling.stage`), for
-kernels B and H alike: ``welch_cuda.prologue``, the argument checks and
-the enqueue of the means prologue, and ``welch_cuda.launch``, the window,
-taps and twiddles lookups, the library, the buffers, the launch and the
-mirrored bins.  The entries compute on the port's device
+those of kernel H; ``X_PREFILTERS`` the calls that filtered x ahead (each
+also a launch of kernel A in ``ops.fir.LAUNCHES``).  In a
+``torch.profiler`` trace :func:`welch_cuda` marks two ranges
+(:class:`pyfft_tpu_torch.utils.profiling.stage`), for kernels B and H
+alike: ``welch_cuda.prologue``, the argument checks and the enqueue of
+the means prologue, and ``welch_cuda.launch``, the window, taps and
+twiddles lookups, the library, the buffers, the launch and the mirrored
+bins; inside the latter ``welch_cuda.x_filter`` holds kernel A's enqueue
+where x is filtered ahead.  The entries compute on the port's device
 (:func:`pyfft_tpu_torch.config.resolve_device`): ``device=``, else the
 first tensor argument's, else the package default, else the card.
 
@@ -66,6 +73,7 @@ import numpy as np
 import torch
 
 from . import _build
+from . import fir as _fir
 from ..config import resolve_device
 from ..utils.profiling import stage
 from .fir import fir_plain, PALLAS_FIR_MAX_TAPS
@@ -73,7 +81,7 @@ from .fir import fir_plain, PALLAS_FIR_MAX_TAPS
 __all__ = ["welch_fir_pallas3", "welch_fir_pallas_fused",
            "welch_pallas3_twosided", "pallas_welch2_applicable",
            "welch_plain", "welch_cuda", "LAUNCHES", "COMPLEX_LAUNCHES",
-           "PACKED_LAUNCHES"]
+           "PACKED_LAUNCHES", "X_PREFILTERS"]
 
 _MIN_NWINS = 16
 _MAX_NWINS = 16384
@@ -81,6 +89,7 @@ _MAX_NWINS = 16384
 LAUNCHES = 0
 COMPLEX_LAUNCHES = 0
 PACKED_LAUNCHES = 0
+X_PREFILTERS = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -233,6 +242,13 @@ def _pair_groups(navr: int, nch: int, resident: int) -> int:
     return max(1, min(nunits, resident // max(nch, 1)))
 
 
+def _prefilters_x(nch: int, K: int, cplx: bool, packed: bool) -> bool:
+    """Whether :func:`welch_cuda` filters x once with kernel A ahead of
+    kernel B: real signals, two or more channels (at one channel x is
+    filtered once already), a filter of two or more taps, not kernel H."""
+    return not cplx and not packed and nch >= 2 and K >= 2
+
+
 def _mirror(out: torch.Tensor, nwins: int, nfreq: int) -> torch.Tensor:
     """Bins ``nwins/2+1 .. nfreq-1`` of real signals' powers ``out (C, 3,
     nwins/2+1)`` from their mirror images: ``P[N-k] = P[k]`` and ``Im
@@ -250,7 +266,7 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
     and ``y (nch, nt)`` with unit stride along time, both float32 (one-sided
     use) or both complex64 (two-sided), on one CUDA device; ``packed``
     takes float32 and ``nch <= 1``.  Raises outside the kernel's domain."""
-    global LAUNCHES, COMPLEX_LAUNCHES, PACKED_LAUNCHES
+    global LAUNCHES, COMPLEX_LAUNCHES, PACKED_LAUNCHES, X_PREFILTERS
     with stage("welch_cuda.prologue"):
         if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
                 and x.is_cuda and y.device == x.device):
@@ -313,7 +329,19 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
                               device=dev)
             # row stride in floats (a complex64 element is two)
             y_stride = y.stride(0) * (2 if cplx else 1) if nch else 0
-            rc = entry(x.data_ptr(), y.data_ptr() if nch else x.data_ptr(),
+            xf = None
+            if _prefilters_x(nch, K, cplx, packed):
+                with stage("welch_cuda.x_filter"):
+                    xf = torch.empty_like(x)
+                    _build.check(lib.pyfft_fir(
+                        x.data_ptr(), t.data_ptr(), xf.data_ptr(), 1, nt, K,
+                        stream), "fir kernel")
+                    _fir.LAUNCHES += 1
+                    X_PREFILTERS += 1
+            # the real kernel takes x filtered ahead, or null
+            xs = ((x.data_ptr(),) if cplx else
+                  (x.data_ptr(), None if xf is None else xf.data_ptr()))
+            rc = entry(*xs, y.data_ptr() if nch else x.data_ptr(),
                        y_stride, t.data_ptr(), K, means.data_ptr(),
                        w.data_ptr(), tw.data_ptr(), part.data_ptr(),
                        out.data_ptr(), nch,

@@ -45,7 +45,8 @@ device, the tensors, the taps and window as NumPy, S1 and ENBW, the gate)
 and, on the kernel path, ``welch_filtered_cross_spectra.finalize`` (the
 copies back, the one-sided scale, ``Pxy`` and ``freq``); between the two,
 kernel B's wrapper marks ``welch_cuda.prologue`` and ``welch_cuda.launch``
-(:mod:`pyfft_tpu_torch.ops.welch`).  Each copy of a tensor off the CPU to
+(with ``welch_cuda.x_filter`` inside where x is filtered ahead;
+:mod:`pyfft_tpu_torch.ops.welch`).  Each copy of a tensor off the CPU to
 the host (``_np``) is a ``copy.d2h`` range, with its wait.  Without a
 running profiler no range is opened.
 """

@@ -12,7 +12,11 @@ nwins 2048, hop 1024, 129 taps), 5 (8 × 2^24, nwins 4096, no taps), 1 (one
 2^24 signal, nwins 4096, ``packed=True``) and the v2 geometry (8 × 2^22,
 nwins 2048 every 128, 129 taps): per case the median of 10 calls by CUDA
 events after a warm-up, in ms, and ``<case>_sha256``, a fingerprint of
-the output bytes.  With ``--split`` it also times the means prologue
+the output bytes; at config 0 also ``config0_device``, from one
+``torch.profiler`` trace of 5 calls: the device ms a call of
+``welch_pair_kernel`` (kernel B) and ``fir_kernel`` (kernel A, which
+filters x ahead where the tree does), of all device operations, and the
+device operations a call.  With ``--split`` it also times the means prologue
 (``welch._means``) by CUDA events and the host's enqueue time of the call
 and of the prologue (host clock from a synchronized card to the return,
 median of 10).
@@ -54,6 +58,32 @@ def fingerprint(outputs):
     for o in outputs:
         h.update(o.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def device_split(fn, calls=5):
+    """Device ms a call of kernels B and A, of every device operation, and
+    the device operations a call, over ``calls`` calls of ``fn`` traced
+    under ``torch.profiler`` after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict(welch_pair_kernel=0.0, fir_kernel=0.0, all=0.0, ops=0)
+    cuda_t = torch.autograd.DeviceType.CUDA
+    for e in prof.key_averages():
+        if e.device_type != cuda_t or getattr(e, "is_user_annotation", False):
+            continue
+        ms = e.self_device_time_total / 1e3 / calls
+        out["all"] += ms
+        out["ops"] += e.count / calls
+        for k in ("welch_pair_kernel", "fir_kernel"):
+            if k in e.key:
+                out[k] += ms
+    return out
 
 
 def real_cases(res, pt, welch, split):
@@ -109,6 +139,8 @@ def real_cases(res, pt, welch, split):
                                     **kw)
         res[name] = events_ms(call)
         res[name + "_sha256"] = fingerprint(call())
+        if name == "config0":
+            res["config0_device"] = device_split(call)
         if split:
             taps64 = np.ones(1) if tp is None else np.asarray(tp, np.float64)
 

@@ -104,6 +104,9 @@ def _welch_complex_sizes():
     (1, 1 << 14, 2048, 1, 33, 1, False),         # hop 1 at N 2048
     (3, 1 << 16, 16384, 4096, 1024, 0, False),   # no ring, K 1024
     (0, 5 << 14, 16384, 16384, 129, 1, False),   # no ring, nch 0, lone
+    (8, 1 << 15, 2048, 1024, 129, 1, False),     # x filtered ahead
+    (8, 2048 + 128 * 200, 2048, 128, 129, 1, False),  # ahead, the v2 hop
+    (8, 1 << 16, 16384, 8192, 129, 1, False),    # ahead, no ring
     *_welch_complex_sizes(),
     (0, 4096 + 16 * 8, 4096, 16, 129, 1, True),  # nch 0, navr 9: lone
     (20, 1 << 13, 512, 256, 33, 0, True),        # nch 20
@@ -286,6 +289,67 @@ def test_welch_real_kernel_keeps_its_bits_on_card(cuda_device):
     """Kernel B on real signals and kernel H give the bits they gave before
     the complex path's redesign."""
     assert _welch_real_fingerprints(cuda_device) == _WELCH_REAL_FINGERPRINTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,ntaps,cplx,packed,engaged", [
+    (8, 129, False, False, True),
+    (2, 5, False, False, True),
+    (1, 129, False, False, False),
+    (0, 129, False, False, False),
+    (8, 0, False, False, False),
+    (8, 129, True, False, False),
+    (1, 129, False, True, False),
+    (0, 0, False, True, False),
+])
+def test_welch_filters_x_ahead_once_a_call_on_card(cuda_device, tmp_path, nch,
+                                                    ntaps, cplx, packed,
+                                                    engaged):
+    """A call behind the gate (real, two or more channels, two or more
+    taps, not kernel H) filters x once with kernel A: one ``X_PREFILTERS``
+    and one kernel A launch a call, none elsewhere.  A traced warm engaged
+    call copies nothing from the host and runs kernel A once, inside
+    ``welch_cuda.x_filter``."""
+    import json
+    rng = np.random.default_rng(nch + ntaps)
+    nt, nwins, hop = 1 << 15, 2048, 1024
+    dt = torch.complex64 if cplx else torch.float32
+    x = rng.standard_normal(nt) + 0.3
+    y = rng.standard_normal((nch, nt))
+    if cplx:
+        x = x + 1j * rng.standard_normal(nt)
+        y = y + 1j * rng.standard_normal((nch, nt))
+    xt = torch.as_tensor(x, dtype=dt, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=dt, device=cuda_device)
+    taps = rng.standard_normal(ntaps) / ntaps if ntaps else None
+    navr = (nt - nwins) // hop + 1
+    win = np.hanning(nwins + 1)[:-1]
+
+    def call():
+        return pw.welch_cuda(xt, yt, win, nwins // 2 + 1, 1.0 / navr,
+                             navr=navr, nwins=nwins, hop=hop, taps=taps,
+                             detrend_style=1, packed=packed)
+
+    for _ in range(2):
+        before = pw.X_PREFILTERS, pfir.LAUNCHES
+        call()
+        assert (pw.X_PREFILTERS, pfir.LAUNCHES) == (before[0] + engaged,
+                                                    before[1] + engaged)
+    if not engaged:
+        return
+    torch.cuda.synchronize()
+    with pprof.trace(tmp_path):
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+    assert not [e["name"] for e in events if e.get("cat") == "gpu_memcpy"
+                and "HtoD" in e["name"]]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("fir_kernel" in k for k in kernels) == 1
+    assert sum("welch_pair_kernel" in k for k in kernels) == 1
+    assert [e["name"] for e in events if e.get("cat") == "user_annotation"
+            and e["name"] == "welch_cuda.x_filter"] == ["welch_cuda.x_filter"]
 
 
 def _stft_sizes():
@@ -1164,9 +1228,10 @@ def test_dryrun_multichip_one_rank_on_card(cuda_device):
 def test_resident_chain_marks_its_stages_on_card(cuda_device, tmp_path):
     """A profiled call of welch_filtered_cross_spectra on signals already on
     the card, after a warm call: the call's range holds its arguments,
-    kernel B's prologue and launch and the finalization, in that order,
-    and the finalization the four copies back (Pxx, Pyy, Pxy's two parts);
-    the call launches kernel B once and copies nothing from the host."""
+    kernel B's prologue and launch (which holds the filter of x ahead) and
+    the finalization, in that order, and the finalization the four copies
+    back (Pxx, Pyy, Pxy's two parts); the call launches kernel B once and
+    copies nothing from the host."""
     import json
     rng = np.random.default_rng(21)
     nt, nch = 1 << 20, 8
@@ -1198,9 +1263,11 @@ def test_resident_chain_marks_its_stages_on_card(cuda_device, tmp_path):
     outer = "welch_filtered_cross_spectra"
     assert [s[0] for s in stages] == [
         outer, f"{outer}.args", "welch_cuda.prologue", "welch_cuda.launch",
-        f"{outer}.finalize"]
+        "welch_cuda.x_filter", f"{outer}.finalize"]
     (_, lo, hi), *inner = stages
     assert all(lo <= s <= e <= hi for _, s, e in inner)
+    (_, llo, lhi), (_, xlo, xhi) = stages[3:5]
+    assert llo <= xlo <= xhi <= lhi
     _, flo, fhi = stages[-1]
     assert len(copies) == 4
     assert all(flo <= s <= e <= fhi for _, s, e in copies)

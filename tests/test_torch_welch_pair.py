@@ -16,6 +16,10 @@ arithmetic is held here as a float64 emulation of its plan:
   as far as the ring and the group reach; the ring starts as NaN, so a
   read of a slot not yet filled shows; at ``N = 16384`` each unit filters
   its whole span instead;
+- where the wrapper filters x ahead (``welch._prefilters_x``: two or more
+  channels, two or more taps), x's ring slots, and x's span at ``N =
+  16384``, come from one filtered row of x (kernel A's), and only y's
+  are filtered per unit;
 - each sequence scaled by its own power of two (``scale_exponent``), the
   register-radix transform of ``csrc/fft_reg.cuh`` (``_transform`` of
   tests/test_torch_stft.py), the split ``X = (Z_k + conj Z_{N-k}) / 2``,
@@ -68,6 +72,9 @@ def _emulate(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend,
     K = taps.size
     means = (pw._moment_means(torch.from_numpy(sig), taps).numpy()
              if detrend else np.zeros(sig.shape[0]))
+    # x filtered ahead: one row, zero-padded before the signal
+    xrow = (np.convolve(np.concatenate([np.zeros(K - 1), x]), taps, "valid")
+            - means[0] if pw._prefilters_x(nch, K, False, False) else None)
     n = np.arange(T)[:, None] + np.arange(_PT) * T     # thread t's point r
     w = np.asarray(win, np.float64)[n]
     nunits = navr if pair else (navr + 1) // 2
@@ -82,6 +89,12 @@ def _emulate(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend,
         idx = np.arange(frm - (K - 1), frm + count)
         raw = np.where(idx >= 0, sig[s][np.clip(idx, 0, None)], 0.0)
         return np.convolve(raw, taps, "valid") - means[s]
+
+    def filt_x(frm, count):
+        """x's ``count`` outputs from time ``frm``: from the row filtered
+        ahead, else as ``filt``."""
+        return (filt(0, frm, count) if xrow is None
+                else xrow[frm:frm + count])
 
     for g in range(ngroups):
         for c in (range(1, nch + 1) if pair else [0]):
@@ -105,7 +118,7 @@ def _emulate(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend,
                         to = min(max(hi, filtered + 4 * T), sa + length,
                                  group_hi)
                         slots = np.arange(filtered, to) % length
-                        ring[slots] = filt(0, filtered, to - filtered)
+                        ring[slots] = filt_x(filtered, to - filtered)
                         if pair:
                             ring[length + slots] = filt(c, filtered,
                                                         to - filtered)
@@ -114,7 +127,7 @@ def _emulate(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend,
                     b = (ring[(length if pair else 0) + (sb + n) % length]
                          if has_b else 0 * a)
                 else:
-                    a = filt(0, sa, N)[n]
+                    a = filt_x(sa, N)[n]
                     b = filt(c, sb, N)[n] if has_b else 0 * a
                 A.append(a * w)
                 B.append(b * w)
@@ -164,6 +177,19 @@ def _inputs(nch, nt, nwins, ntaps, seed, dtype=np.float64):
     (3, 2048 + 128 * 19, 2048, 128, 129, 1, 1025, 9),  # the v2 geometry
     (2, 16384 * 2, 16384, 8192, 33, 1, 8193, 4),  # no ring, 3 segments
     (0, 16384 * 2, 16384, 8192, 1, 1, 8193, 1),   # no ring, a lone segment
+    # x filtered ahead (nch >= 2, K >= 2): hop N/2, the v2 hop 128, no ring
+    (2, 256 * 7 + 9, 256, 128, 5, 1, 129, 5),
+    (2, 512 * 6, 512, 256, 129, 1, 257, 7),
+    (8, 256 * 7 + 9, 256, 128, 5, 0, 129, 20),
+    (8, 512 * 6, 512, 256, 129, 1, 257, 30),
+    (2, 2048 + 128 * 13, 2048, 128, 5, 1, 1025, 6),
+    (2, 2048 + 128 * 11, 2048, 128, 129, 1, 1025, 4),
+    (8, 2048 + 128 * 9, 2048, 128, 5, 1, 1025, 24),
+    (8, 2048 + 128 * 10, 2048, 128, 129, 0, 1025, 40),
+    (2, 16384 * 2, 16384, 8192, 5, 1, 8193, 4),
+    (2, 16384 * 2, 16384, 8192, 129, 1, 8193, 2),
+    (8, 16384 * 2, 16384, 8192, 5, 1, 8193, 24),
+    (8, 16384 * 2, 16384, 8192, 129, 0, 8193, 9),
 ])
 def test_welch_pair_plan_matches_plain(nch, nt, nwins, hop, ntaps, detrend,
                                        nfreq, resident):
@@ -272,6 +298,26 @@ def test_pair_scaling_keeps_a_quiet_sequence_accurate(ratio, quiet):
     assert worst(pair(True)) <= 2e-5
     if ratio >= 1e3:
         assert worst(pair(False)) > 2e-5
+
+
+@pytest.mark.parametrize("nch,K,cplx,packed,engaged", [
+    (2, 2, False, False, True),
+    (8, 129, False, False, True),
+    (20, 1024, False, False, True),
+    (0, 129, False, False, False),     # x is the only signal
+    (1, 129, False, False, False),     # x already filtered once an item
+    (8, 1, False, False, False),       # no filter
+    (8, 129, True, False, False),      # complex signals: csrc/welch.cu
+    (1, 129, False, True, False),      # kernel H
+    (0, 33, False, True, False),
+])
+def test_welch_cuda_filters_x_ahead_only_behind_its_gate(nch, K, cplx, packed,
+                                                         engaged):
+    """Kernel B's wrapper filters x once ahead (kernel A) for real signals
+    with two or more channels and two or more taps, never for kernel H or
+    complex signals; the emulated plan takes x's slots from that row
+    exactly there."""
+    assert pw._prefilters_x(nch, K, cplx, packed) is engaged
 
 
 def test_moment_means_cache_the_taps():
