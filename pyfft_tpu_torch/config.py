@@ -30,7 +30,8 @@ The port's device rule lives here too: :func:`resolve_device` picks the
 device an entry point computes on, and :func:`set_default_device` /
 :func:`default_device` set the package default it falls back to.  There is
 no quiet fallback to the CPU: without a card and without a CPU request,
-an entry point raises.
+an entry point raises.  So does the host-device boundary: ``_tensor`` and
+``_np``, each copy to the host a ``copy.d2h`` range.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from . import segmentation as seg
+from .utils.profiling import stage
 from .windows import windows as _windows
 
 __all__ = ["SpectralConfig", "ResolvedSpectral", "welch_psd",
@@ -94,6 +96,23 @@ def resolve_device(device=None, *arrays) -> torch.device:
             'set pyfft_tpu_torch.config.set_default_device("cpu")) to run '
             "the plain PyTorch versions on the CPU")
     return torch.device("cuda")
+
+
+def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+def _np(a) -> np.ndarray:
+    """``a`` as a NumPy array; a tensor off the CPU is copied to the host
+    (a ``copy.d2h`` range, which waits for the work that writes it)."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    if a.device.type == "cpu":
+        return a.detach().numpy()
+    with stage("copy.d2h"):
+        return a.detach().cpu().numpy()
 
 
 _DETREND_CODES = {1: 1, 0: 0, -1: -1,

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .filters import downsample_efficient
-from .spectral import _device, _np
+from .config import _np, resolve_device
 from .utils.detrend import detrend_none
 
 __all__ = ["rescale", "unscale", "fft_deriv"]
@@ -67,7 +67,7 @@ def fft_deriv(sig, xx=None, lowpass=True, Fs_new=None, modified=True,
     ``detrend`` takes and returns a tensor (:mod:`pyfft_tpu_torch.utils.
     detrend`).  Returns ``(dsdx, xx)`` as NumPy arrays.
     """
-    dev = _device(device, sig)
+    dev = resolve_device(device, sig)
     sig = np.asarray(_np(sig), dtype=float)
     if xx is None:
         xx = 1.0 * np.arange(len(sig))

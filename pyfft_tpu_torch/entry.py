@@ -46,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from . import segmentation as seg
-from .config import default_device, resolve_device
+from .config import _np, default_device, resolve_device
 
 __all__ = ["entry", "dryrun_multichip"]
 
@@ -87,12 +87,12 @@ def entry(device=None):
 
     def forward(x, y):
         """x: (nt,) reference signal; y: (nch, nt) channels -> spectra."""
-        out = _welch_core_pallas(x, y, win, norm, **static)
-        if out is None:
+        P = _welch_core_pallas(x, y, win, norm, **static)
+        if P is None:
             raise RuntimeError(
                 f"entry: no kernel takes nwins={plan.nwins} "
                 f"navr={plan.navr} nch={y.shape[0]} for these inputs")
-        return out
+        return P[0, 0], P[1:, 0].T, P[1:, 1].T, P[1:, 2].T
 
     rng = np.random.default_rng(0)
     x = rng.standard_normal(plan.nsig).astype(np.float32)
@@ -117,7 +117,7 @@ def _stages(n_devices, dev):
     from .fftanal import stft_segments
     from .hilbert import hilbert
     from .parallel.mesh import coordinate
-    from .spectral import _np, fft_pwelch, welch_cross_spectra
+    from .spectral import fft_pwelch, welch_cross_spectra
 
     kern = dict(fft_backend="pallas")
     ch = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1

@@ -30,9 +30,9 @@ from .utils.structure import Struct
 from .utils.detrend import detrend_func
 from .windows import windows
 from . import segmentation as seg
+from .config import _np, _tensor, resolve_device
 from .spectral import (fft_pwelch, Cxy_Cxy2, _onesided_amp_scale,
-                       _onesided_power_scale, _device, _tensor, _np,
-                       _SEGMENT_FIELDS)
+                       _onesided_power_scale, _SEGMENT_FIELDS)
 from .ops.stft import _stft, stft_applicable
 from .ops.welch import _row_sums
 
@@ -175,7 +175,7 @@ def stft_segments(x, tvec, win, plan: seg.SegmentPlan, fs, *, onesided=True,
     s1 = seg.get_s1(win_np)
     s2 = seg.get_s2(win_np)
     enbw = seg.get_enbw(fs, s1, s2)
-    dev = _device(device, x)
+    dev = resolve_device(device, x)
     backend = fft_backend
     if backend not in ("xla", "mxu", "pallas"):
         backend = "pallas" if dev.type == "cuda" else "xla"

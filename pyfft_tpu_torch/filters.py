@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from . import segmentation as seg
 from .ops.fir import tile_rows, untile_rows, fir_pallas_tiled
-from .spectral import _device, _np, _tensor
+from .config import _np, _tensor, resolve_device
 from .utils.interp import interp
 
 __all__ = ["butter", "butter_lowpass", "butter_bandpass",
@@ -160,7 +160,7 @@ def butter_lowpass_filter(data, cutoff, fs, order=5, axis=0, device=None):
 
 def complex_filtfilt(filt_n, filt_d, data, device=None):
     """filtfilt on real and imaginary parts separately (reference ``:351``)."""
-    data = _tensor(data, _device(device, data))
+    data = _tensor(data, resolve_device(device, data))
     dRR = filtfilt(filt_n, filt_d, data.real)
     dII = filtfilt(filt_n, filt_d, data.imag if data.is_complex()
                    else torch.zeros_like(data))
@@ -273,7 +273,7 @@ def lfilter(b, a, x, zi=None, axis=-1, device=None):
         x = _np(x)
         y = b[0] * x
         return (y, np.zeros(x.shape[:-1] + (0,))) if zi is not None else y
-    xm = torch.movedim(_wide(x, _device(device, x, zi)), axis, -1)
+    xm = torch.movedim(_wide(x, resolve_device(device, x, zi)), axis, -1)
     z0 = None
     if zi is not None:
         z0 = torch.movedim(_wide(zi, xm.device), axis, -1).broadcast_to(
@@ -325,7 +325,7 @@ def filtfilt(b, a, x, axis=-1, device=None):
     """
     b = np.asarray(b, dtype=np.float64)
     a = np.asarray(a, dtype=np.float64)
-    xm = torch.movedim(_wide(x, _device(device, x)), axis, -1)
+    xm = torch.movedim(_wide(x, resolve_device(device, x)), axis, -1)
     return _np(torch.movedim(_filtfilt_t(b, a, xm), -1, axis))
 
 
@@ -473,7 +473,8 @@ def _oaconvolve(x, taps, mode="full", nfft=None):
 def oaconvolve(x, taps, mode="full", nfft=None, device=None):
     """Overlap-save FIR convolution along the last axis (:func:`_oaconvolve`)
     on ``device``; NumPy out, as in the JAX package."""
-    return _np(_oaconvolve(_tensor(x, _device(device, x)), taps, mode, nfft))
+    x = _tensor(x, resolve_device(device, x))
+    return _np(_oaconvolve(x, taps, mode, nfft))
 
 
 def _fir_filter(x, taps, axis=-1, backend=None):
@@ -496,7 +497,7 @@ def _fir_filter(x, taps, axis=-1, backend=None):
 def fir_filter(x, taps, axis=-1, backend=None, device=None):
     """Causal FIR filtering (:func:`_fir_filter`) on ``device``; NumPy out,
     as in the JAX package."""
-    return _np(_fir_filter(_tensor(x, _device(device, x)), taps, axis,
+    return _np(_fir_filter(_tensor(x, resolve_device(device, x)), taps, axis,
                            backend))
 
 
@@ -515,7 +516,7 @@ def fir_filtfilt(x, taps, axis=-1, device=None):
     removes the group delay (apply :func:`iir_to_fir` twice via squared
     response for an exact |H|^2 match with an IIR ``filtfilt``).
     """
-    x = torch.movedim(_wide(x, _device(device, x)), axis, -1)
+    x = torch.movedim(_wide(x, resolve_device(device, x)), axis, -1)
     ntaps = len(taps)
     pad = ntaps
     left = 2 * x[..., :1] - x[..., 1:pad + 1].flip(-1)
@@ -555,7 +556,7 @@ def downsample(u_t, Fs, Fs_new, plotit=False, device=None):
     a 2-D ``(nt_new, nch)`` array.
     """
     tau = 2 / Fs_new
-    dev = _device(device, u_t)
+    dev = resolve_device(device, u_t)
     u_t = np.asarray(_np(u_t), dtype=np.float64)
     nt = len(u_t)
     tt = np.arange(0, nt, 1) / Fs
@@ -573,7 +574,7 @@ def downsample_efficient(u_t, Fs, Fs_new, plotit=False, halforder=2,
     :123-218)."""
     if lowpass is None:
         lowpass = 0.5 * Fs_new
-    dev = _device(device, u_t)
+    dev = resolve_device(device, u_t)
     u_t = np.asarray(_np(u_t), dtype=np.float64)
     nt = len(u_t)
     squeeze = u_t.ndim == 1
@@ -590,7 +591,7 @@ def smooth(x, window_len=11, window="hanning", device=None):
     """Windowed moving average with reflected ends (reference ``smooth``,
     :226-285, with integer slicing so that the output has the input's
     length), convolved by :func:`oaconvolve` on ``device``; NumPy out."""
-    dev = _device(device, x)
+    dev = resolve_device(device, x)
     x = np.asarray(_np(x))
     if x.ndim != 1:
         raise ValueError("smooth only accepts 1 dimension arrays.")
@@ -653,7 +654,7 @@ def resample_poly(x, up, down, axis=-1, taps=None, device=None):
     if up == down == 1:
         return np.array(_np(x), copy=True)
 
-    xm = torch.movedim(_tensor(x, _device(device, x)), axis, -1)
+    xm = torch.movedim(_tensor(x, resolve_device(device, x)), axis, -1)
     if not (xm.is_floating_point() or xm.is_complex()):
         xm = xm.to(torch.float64)
     n_in = xm.shape[-1]

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .ops import hilbert as _kd
-from .spectral import _device, _np, _tensor
+from .config import _np, _tensor, resolve_device
 
 __all__ = ["hilbert", "hilbert_1d", "analytic_mask", "envelope_phase"]
 
@@ -71,7 +71,8 @@ def hilbert(uin, nfft=None, axes=-1, device=None):
     complex inputs take the same mask.
     """
     u = _tensor(uin if isinstance(uin, torch.Tensor)
-                else np.atleast_1d(np.asarray(uin)), _device(device, uin))
+                else np.atleast_1d(np.asarray(uin)),
+                resolve_device(device, uin))
     if u.dim() == 0:
         u = u[None]
     if nfft is None:
@@ -132,7 +133,7 @@ def envelope_phase(uin, nfft=None, axes=-1, mesh=None, device=None):
     """
     if mesh is not None:
         return _envelope_phase_mesh(uin, nfft, axes, mesh)
-    dev = _device(device, uin)
+    dev = resolve_device(device, uin)
     u = (uin.to(device=dev, dtype=torch.float32)
          if isinstance(uin, torch.Tensor)
          else torch.as_tensor(np.asarray(uin, dtype=np.float32), device=dev))

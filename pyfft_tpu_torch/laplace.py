@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .spectral import _device, _np
+from .config import _np, resolve_device
 
 __all__ = ["laplace", "laplace_1d"]
 
@@ -44,7 +44,7 @@ def laplace_1d(uin, real_sigma_interval=None, nfft=None, sigma_block=None,
     matrix.  The exponents stay float64 (their range is ``|sigma| * N``);
     only the bounded weights are cast to the signal's precision.
     """
-    dev = _device(device, uin)
+    dev = resolve_device(device, uin)
     uin = np.atleast_1d(np.asarray(_np(uin)))
     if real_sigma_interval is None:
         real_sigma_interval = np.arange(-1, 1 + 0.001, 0.001)

@@ -37,7 +37,7 @@ import torch
 from . import _build
 from .welch import _row_sums, _twiddles, _window
 from .. import segmentation as seg
-from ..spectral import _device, _tensor
+from ..config import _tensor, resolve_device
 
 __all__ = ["stft_pallas3", "stft_applicable", "stft_plain", "stft_cuda",
            "LAUNCHES"]
@@ -178,7 +178,7 @@ def _stft(x, y, win, norm, *, navr, nwins, noverlap, detrend_style=1,
         raise ValueError(
             f"stft kernel: unsupported geometry nwins={nwins} "
             f"noverlap={noverlap} detrend={detrend_style}")
-    dev = _device(device, x, y)
+    dev = resolve_device(device, x, y)
     x, y = _stack(_tensor(x, dev), None if y is None else _tensor(y, dev))
     dtype = (torch.complex64 if x.is_complex() or y.is_complex()
              else torch.float32)

@@ -16,13 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..spectral import _device, _np, _tensor
+from ..config import _np, _tensor, resolve_device
 
 __all__ = ["fft", "ifft", "rfft", "irfft"]
 
 
 def _run(op, x, n, axis, device):
-    t = _tensor(x, _device(device, x))
+    t = _tensor(x, resolve_device(device, x))
     if t.numel() == 0:      # torch's FFT backends refuse empty batches
         return getattr(np.fft, op.__name__.split("_")[-1])(_np(t), n=n,
                                                            axis=axis)

@@ -9,7 +9,9 @@ global mean of each *filtered* signal removed (``detrend_style`` 1) or not
 (0); Hann-or-any ``win`` on ``navr`` segments of ``nwins`` samples every
 ``hop``; returns ``(Pxx, Pyy, Pxy_re, Pxy_im)`` summed over segments and
 scaled by ``norm``, with ``Pxy = Y conj(X)``.  The caller applies the
-one-sided bin doubling.
+one-sided bin doubling.  ``_run`` returns the kernels' ``(1 + nch, 3,
+nfreq)`` result block (row 0 ``Pxx``, row ``1 + c`` channel ``c``'s
+``Pyy``, ``Pxy_re``, ``Pxy_im``); ``_split`` cuts it into the four.
 
 - On CUDA tensors :func:`welch_cuda` launches kernel B, both of its
   kernels on ``csrc/fft_reg.cuh``: real signals ``csrc/welch_pair.cu`` (x
@@ -249,6 +251,18 @@ def _prefilters_x(nch: int, K: int, cplx: bool, packed: bool) -> bool:
     return not cplx and not packed and nch >= 2 and K >= 2
 
 
+def _block(Pxx, Pyy, Pr, Pi) -> torch.Tensor:
+    """The four outputs as the kernels' ``(1 + nch, 3, nfreq)`` block."""
+    zero = torch.zeros_like(Pxx)
+    return torch.cat([torch.stack([Pxx, zero, zero])[None],
+                      torch.stack([Pyy, Pr, Pi], dim=1)])
+
+
+def _split(block: torch.Tensor):
+    """``(Pxx, Pyy, Pxy_re, Pxy_im)`` of a result block, as views."""
+    return block[0, 0], block[1:, 0], block[1:, 1], block[1:, 2]
+
+
 def _mirror(out: torch.Tensor, nwins: int, nfreq: int) -> torch.Tensor:
     """Bins ``nwins/2+1 .. nfreq-1`` of real signals' powers ``out (C, 3,
     nwins/2+1)`` from their mirror images: ``P[N-k] = P[k]`` and ``Im
@@ -260,12 +274,18 @@ def _mirror(out: torch.Tensor, nwins: int, nfreq: int) -> torch.Tensor:
     return torch.cat([out, tail], dim=-1)
 
 
-def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
-               detrend_style=1, packed=False):
-    """Launch kernel B, or with ``packed`` kernel H.  ``x (nt,)`` contiguous
-    and ``y (nch, nt)`` with unit stride along time, both float32 (one-sided
-    use) or both complex64 (two-sided), on one CUDA device; ``packed``
-    takes float32 and ``nch <= 1``.  Raises outside the kernel's domain."""
+def welch_cuda(x, y, win, nfreq, norm, **kw):
+    """:func:`_launch`'s block as ``(Pxx, Pyy, Pxy_re, Pxy_im)``."""
+    return _split(_launch(x, y, win, nfreq, norm, **kw))
+
+
+def _launch(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
+            detrend_style=1, packed=False):
+    """Launch kernel B, or with ``packed`` kernel H; returns the result
+    block.  ``x (nt,)`` contiguous and ``y (nch, nt)`` with unit stride
+    along time, both float32 (one-sided use) or both complex64
+    (two-sided), on one CUDA device; ``packed`` takes float32 and ``nch <=
+    1``.  Raises outside the kernel's domain."""
     global LAUNCHES, COMPLEX_LAUNCHES, PACKED_LAUNCHES, X_PREFILTERS
     with stage("welch_cuda.prologue"):
         if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
@@ -356,7 +376,7 @@ def welch_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
             COMPLEX_LAUNCHES += 1
         else:
             LAUNCHES += 1
-        return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]
+        return out
 
 
 # --------------------------------------------------------------------------- #
@@ -380,13 +400,13 @@ def _signals(x, y, dtype, device=None):
 
 def _run(x, y, win, nfreq, norm, *, navr, nwins, hop, taps, detrend_style,
          packed=False):
-    """Kernel B (kernel H with ``packed``) on CUDA tensors, else the plain
-    version, which is both kernels' plain version."""
+    """The block of kernel B (kernel H with ``packed``) on CUDA tensors,
+    else of the plain version, which is both kernels' plain version."""
     kw = dict(navr=int(navr), nwins=int(nwins), hop=int(hop), taps=taps,
               detrend_style=int(detrend_style))
     if x.is_cuda:
-        return welch_cuda(x, y, win, nfreq, norm, packed=packed, **kw)
-    return welch_plain(x, y, win, nfreq, norm, **kw)
+        return _launch(x, y, win, nfreq, norm, packed=packed, **kw)
+    return _block(*welch_plain(x, y, win, nfreq, norm, **kw))
 
 
 def welch_fir_pallas3(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
@@ -400,8 +420,9 @@ def welch_fir_pallas3(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
             f"welch kernel: unsupported geometry nwins={nwins} "
             f"noverlap={noverlap} navr={navr} detrend={detrend_style}")
     x, y = _signals(x, y, torch.float32, device)
-    return _run(x, y, win, int(nfreq), norm, navr=navr, nwins=nwins,
-                hop=nwins - noverlap, taps=taps, detrend_style=detrend_style)
+    return _split(_run(x, y, win, int(nfreq), norm, navr=navr, nwins=nwins,
+                       hop=nwins - noverlap, taps=taps,
+                       detrend_style=detrend_style))
 
 
 # The JAX package's v2 entry, which runs TPU kernel #1 wherever it applies
@@ -421,5 +442,6 @@ def welch_pallas3_twosided(x, y, win, norm, *, navr, nwins, noverlap,
             f"welch two-sided kernel: unsupported geometry nwins={nwins} "
             f"noverlap={noverlap} navr={navr} detrend={detrend_style}")
     x, y = _signals(x, y, torch.complex64, device)
-    return _run(x, y, win, int(nwins), norm, navr=navr, nwins=nwins,
-                hop=nwins - noverlap, taps=taps, detrend_style=detrend_style)
+    return _split(_run(x, y, win, int(nwins), norm, navr=navr, nwins=nwins,
+                       hop=nwins - noverlap, taps=taps,
+                       detrend_style=detrend_style))

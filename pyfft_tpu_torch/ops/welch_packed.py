@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from ..config import resolve_device
-from .welch import _run
+from .welch import _run, _split
 
 __all__ = ["welch_auto_packed", "welch_pair_packed", "packed_parts_geometry",
            "packed_pair_geometry"]
@@ -113,15 +113,13 @@ def _signal(a, device):
     return a.to(torch.float32).reshape(-1).contiguous()
 
 
-def _packed(x, y, win, nfreq, norm, *, navr, nwins, noverlap, taps,
+def _packed(x, ys, win, nfreq, norm, *, navr, nwins, noverlap, taps,
             detrend_style):
-    """Kernel H (plain version on the CPU) on ``x (nt,)`` and ``y (nt,)``
-    or None: ``Pxx`` (auto) or the four pair outputs."""
-    ys = x.new_empty((0, x.shape[0])) if y is None else y[None]
-    P = _run(x, ys, win, int(nfreq), norm, navr=navr, nwins=nwins,
-             hop=int(nwins) - int(noverlap), taps=taps,
-             detrend_style=detrend_style, packed=True)
-    return P[0] if y is None else P
+    """The four outputs of kernel H (plain version on the CPU) on ``x
+    (nt,)`` and ``ys (0, nt)`` or ``(1, nt)``."""
+    return _split(_run(x, ys, win, int(nfreq), norm, navr=navr, nwins=nwins,
+                       hop=int(nwins) - int(noverlap), taps=taps,
+                       detrend_style=detrend_style, packed=True))
 
 
 def welch_auto_packed(x, win, nfreq, norm, *, navr, nwins, noverlap,
@@ -137,8 +135,9 @@ def welch_auto_packed(x, win, nfreq, norm, *, navr, nwins, noverlap,
     if detrend_style not in (0, 1):
         raise ValueError("v3 welch kernel supports detrend mean/none")
     x = _signal(x, resolve_device(device, x))
-    return _packed(x, None, win, nfreq, norm, navr=navr, nwins=nwins,
-                   noverlap=noverlap, taps=taps, detrend_style=detrend_style)
+    return _packed(x, x.new_empty((0, x.shape[0])), win, nfreq, norm,
+                   navr=navr, nwins=nwins, noverlap=noverlap, taps=taps,
+                   detrend_style=detrend_style)[0]
 
 
 def welch_pair_packed(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
@@ -155,6 +154,6 @@ def welch_pair_packed(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
     if detrend_style not in (0, 1):
         raise ValueError("v3 welch kernel supports detrend mean/none")
     dev = resolve_device(device, x, y)
-    return _packed(_signal(x, dev), _signal(y, dev), win, nfreq, norm,
+    return _packed(_signal(x, dev), _signal(y, dev)[None], win, nfreq, norm,
                    navr=navr, nwins=nwins, noverlap=noverlap, taps=taps,
                    detrend_style=detrend_style)

@@ -11,7 +11,7 @@ least-squares line); ``navr`` segments of ``nwins`` samples every ``hop``,
 windowed by ``win``; returns ``(Pxx (nfreq,), Pyy (nch, nfreq), Pxy_re,
 Pxy_im)``, the first ``nfreq`` one-sided bins summed over segments and
 scaled by ``norm``, with ``Pxy = Y conj(X)``.  The caller applies the
-one-sided bin doubling.
+one-sided bin doubling.  ``_run`` returns kernel B's result block.
 
 - On CUDA tensors :func:`welch_dft_cuda` launches kernel E
   (``csrc/welch_dft.cu``): the kept bins of every (signal, segment)
@@ -52,7 +52,8 @@ import torch
 
 from . import _build
 from ..config import resolve_device
-from .welch import _SUM_BLOCK, _row_sums, _signals, _twiddles, welch_plain
+from .welch import (_SUM_BLOCK, _block, _row_sums, _signals, _split,
+                    _twiddles, welch_plain)
 from ..utils.detrend import detrend_func
 
 __all__ = ["welch_pallas_fused", "welch_power_pallas",
@@ -281,11 +282,15 @@ def _trend(rows, detrend_style):
     return s0 / nt, s1 / (nt * (nt * nt - 1) / 12.0)
 
 
-def welch_dft_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop,
-                   detrend_style=1):
-    """Launch kernel E.  ``x (nt,)`` contiguous and ``y (nch, nt)`` with
-    unit stride along time, float32, on one CUDA device.  Raises outside
-    the kernel's domain."""
+def welch_dft_cuda(x, y, win, nfreq, norm, **kw):
+    """:func:`_launch`'s block as ``(Pxx, Pyy, Pxy_re, Pxy_im)``."""
+    return _split(_launch(x, y, win, nfreq, norm, **kw))
+
+
+def _launch(x, y, win, nfreq, norm, *, navr, nwins, hop, detrend_style=1):
+    """Launch kernel E; returns the result block.  ``x (nt,)`` contiguous
+    and ``y (nch, nt)`` with unit stride along time, float32, on one CUDA
+    device.  Raises outside the kernel's domain."""
     global LAUNCHES
     if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
             and x.is_cuda and y.device == x.device):
@@ -347,7 +352,7 @@ def welch_dft_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop,
                 int(hop), int(nfreq), float(norm), stream)
             _build.check(rc, "welch dft kernel")
     LAUNCHES += 1
-    return out[0, 0], out[1:, 0], out[1:, 1], out[1:, 2]
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -355,15 +360,16 @@ def welch_dft_cuda(x, y, win, nfreq, norm, *, navr, nwins, hop,
 # --------------------------------------------------------------------------- #
 
 def _run(x, y, win, nfreq, norm, *, navr, nwins, hop, detrend_style):
+    """The block of kernel E on CUDA tensors, else of its plain version."""
     kw = dict(navr=int(navr), nwins=int(nwins), hop=int(hop),
               detrend_style=int(detrend_style))
     if x.is_cuda:
-        return welch_dft_cuda(x, y, win, int(nfreq), norm, **kw)
+        return _launch(x, y, win, int(nfreq), norm, **kw)
     if not kernel_applicable(nwins, nfreq, hop, navr, detrend_style):
         raise ValueError(
             f"welch dft kernel: unsupported geometry nwins={nwins} hop={hop} "
             f"navr={navr} nfreq={nfreq} detrend={detrend_style}")
-    return welch_dft_plain(x, y, win, int(nfreq), norm, **kw)
+    return _block(*welch_dft_plain(x, y, win, int(nfreq), norm, **kw))
 
 
 def welch_pallas_fused(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
@@ -374,8 +380,9 @@ def welch_pallas_fused(x, y, win, nfreq, norm, *, navr, nwins, noverlap,
     tensors on the input's device.  Raises ``ValueError`` outside kernel
     E's domain."""
     x, y = _signals(x, y, torch.float32, device)
-    return _run(x, y, win, nfreq, norm, navr=navr, nwins=nwins,
-                hop=int(nwins) - int(noverlap), detrend_style=detrend_style)
+    return _split(_run(x, y, win, nfreq, norm, navr=navr, nwins=nwins,
+                       hop=int(nwins) - int(noverlap),
+                       detrend_style=detrend_style))
 
 
 def welch_power_pallas(xfr, yfr, win, nfreq, device=None):
@@ -389,5 +396,5 @@ def welch_power_pallas(xfr, yfr, win, nfreq, device=None):
     B, nwins = xfr.shape
     x, y = _signals(xfr.reshape(-1), yfr.reshape(yfr.shape[0], B * nwins),
                     torch.float32)
-    return _run(x, y, win, nfreq, 1.0, navr=B, nwins=nwins, hop=nwins,
-                detrend_style=0)
+    return _split(_run(x, y, win, nfreq, 1.0, navr=B, nwins=nwins,
+                       hop=nwins, detrend_style=0))

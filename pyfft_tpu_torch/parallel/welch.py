@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import segmentation as seg
-from ..spectral import (_kernel_sums, _onesided_power_scale, pallas_route,
+from ..spectral import (_fold_bins, _kernel_sums, pallas_route,
                         resolve_fft_backend)
 from ..utils.detrend import detrend_func
 from . import _comm
@@ -241,13 +241,7 @@ def welch_psd_sharded(x, y, win, plan: seg.SegmentPlan, fs, mesh, *,
             acc[1:] = torch.cat(sums[1:])
     with _comm.step("reductions", dev):
         _comm.all_reduce(acc, tgrp)
-        acc /= navr
-        if onesided:
-            acc *= torch.as_tensor(_onesided_power_scale(plan.nfft, nfreq),
-                                   device=dev)
-        else:
-            acc = torch.fft.fftshift(acc, dim=-1)
-        acc *= norm
+        acc = _fold_bins(acc / navr, plan.nfft, nfreq, onesided) * norm
         ych = _comm.all_gather(acc[1:], chgrp)            # (dch, 3 nch_l, nf)
         ych = ych.reshape(dch, 3, nch_l, nfreq).transpose(0, 1)
         ych = ych.reshape(3, nch, nfreq)

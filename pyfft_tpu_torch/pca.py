@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .spectral import _device, _np
+from .config import _np, resolve_device
 
 __all__ = ["cov", "basic_pca", "PCA", "test_data", "test", "test_PCA",
            "plot_pca"]
@@ -30,7 +30,7 @@ def cov(data):
 def _project(data, evecs, device=None):
     """Device matmul for the projection when worthwhile, else host."""
     if data.size >= 1 << 16:
-        dev = _device(device)
+        dev = resolve_device(device)
         out = torch.matmul(
             torch.as_tensor(data, dtype=torch.float32, device=dev),
             torch.as_tensor(evecs, dtype=torch.float32, device=dev))

@@ -41,14 +41,15 @@ inputs to their device, and ``fft_pwelch.device_core``, the transform path
 up to the averaged spectra on the host; the rest of the call is the host
 finalization.  ``welch_filtered_cross_spectra`` marks the whole call with
 its own name and, inside it, ``welch_filtered_cross_spectra.args`` (the
-device, the tensors, the taps and window as NumPy, S1 and ENBW, the gate)
-and, on the kernel path, ``welch_filtered_cross_spectra.finalize`` (the
-copies back, the one-sided scale, ``Pxy`` and ``freq``); between the two,
-kernel B's wrapper marks ``welch_cuda.prologue`` and ``welch_cuda.launch``
-(with ``welch_cuda.x_filter`` inside where x is filtered ahead;
+device, the tensors, the taps and window as NumPy, S1 and ENBW) and, on
+the kernel path, ``welch_filtered_cross_spectra.finalize`` (the one copy
+of the result block back, ``Pxy`` and ``freq``); between the two, the
+kernel core (:func:`_welch_core_pallas`), where kernel B's wrapper marks
+``welch_cuda.prologue`` and ``welch_cuda.launch`` (with
+``welch_cuda.x_filter`` inside where x is filtered ahead;
 :mod:`pyfft_tpu_torch.ops.welch`).  Each copy of a tensor off the CPU to
-the host (``_np``) is a ``copy.d2h`` range, with its wait.  Without a
-running profiler no range is opened.
+the host (``config._np``) is a ``copy.d2h`` range, with its wait.  Without
+a running profiler no range is opened.
 """
 from __future__ import annotations
 
@@ -58,7 +59,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .config import resolve_device as _device
+from .config import _np, _tensor, resolve_device
+from .filters import _fir_filter
+from .ops import welch, welch_v1
+from .ops.fir import PALLAS_FIR_MAX_TAPS
+from .ops.welch_packed import packed_pair_geometry
 from .utils.structure import Struct
 from .utils.detrend import detrend_func
 from .utils.profiling import stage
@@ -83,23 +88,6 @@ def resolve_fft_backend(fft_backend=None) -> str:
     if fft_backend in ("xla", "mxu", "pallas"):
         return fft_backend
     return "xla"
-
-
-def _tensor(a, device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-
-def _np(a) -> np.ndarray:
-    """``a`` as a NumPy array; a tensor off the CPU is copied to the host
-    (a ``copy.d2h`` range, which waits for the work that writes it)."""
-    if not isinstance(a, torch.Tensor):
-        return np.asarray(a)
-    if a.device.type == "cpu":
-        return a.detach().numpy()
-    with stage("copy.d2h"):
-        return a.detach().cpu().numpy()
 
 
 # --------------------------------------------------------------------------- #
@@ -224,11 +212,22 @@ def _onesided_power_scale(nfft: int, nnyquist: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _power_scale_on(nfft: int, nnyquist: int, device: str) -> torch.Tensor:
-    """:func:`_onesided_power_scale` in float32 on ``device``, copied there
-    once per geometry."""
+def _power_scale_on(nfft: int, nnyquist: int, device: str,
+                    dtype=torch.float32) -> torch.Tensor:
+    """:func:`_onesided_power_scale` as ``dtype`` on ``device``, copied
+    there once per geometry."""
     return torch.as_tensor(_onesided_power_scale(nfft, nnyquist),
-                           dtype=torch.float32, device=device)
+                           dtype=dtype, device=device)
+
+
+def _fold_bins(P, nfft, nnyquist, onesided):
+    """Power spectra ``P`` (bins last) as the paths return them: the first
+    ``nnyquist`` bins with the one-sided doubling, or all ``fftshift``-ed.
+    The doubling is exact, so where it runs does not change the bits."""
+    if onesided:
+        return P[..., :nnyquist] * _power_scale_on(
+            nfft, nnyquist, str(P.device), P.real.dtype)
+    return torch.fft.fftshift(P, dim=-1)
 
 
 def _onesided_amp_scale(nfft: int, nnyquist: int) -> np.ndarray:
@@ -276,21 +275,9 @@ def _welch_core_xla(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
     Pyy = Y * Y.conj()                                       # (nch, navr, nfft)
     Pxy = Y * X.conj()                                       # (nch, navr, nfft)
 
-    if onesided:
-        scale = torch.as_tensor(_onesided_power_scale(nfft, nnyquist),
-                                dtype=Pxx.real.dtype, device=x.device)
-        Pxx = Pxx[..., :nnyquist] * scale
-        Pyy = Pyy[..., :nnyquist] * scale
-        Pxy = Pxy[..., :nnyquist] * scale
-    else:
-        Pxx = torch.fft.fftshift(Pxx, dim=-1)
-        Pyy = torch.fft.fftshift(Pyy, dim=-1)
-        Pxy = torch.fft.fftshift(Pxy, dim=-1)
-
     norm = 1.0 / s1sq_enbw
-    Pxx = Pxx * norm
-    Pyy = Pyy * norm
-    Pxy = Pxy * norm
+    Pxx, Pyy, Pxy = (_fold_bins(P, nfft, nnyquist, onesided) * norm
+                     for P in (Pxx, Pyy, Pxy))
 
     return dict(Pxx_seg=Pxx, Pyy_seg=Pyy, Pxy_seg=Pxy,
                 Xfft_seg=X, Yfft_seg=Y,
@@ -299,12 +286,8 @@ def _welch_core_xla(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
                 Pxy=Pxy.mean(dim=1).T)
 
 
-_NO_SEGMENTS = dict(Pxx_seg=None, Pyy_seg=None, Pxy_seg=None,
-                    Xfft_seg=None, Yfft_seg=None)
-
-
 def pallas_route(*, nwins, noverlap, navr, nnyquist, onesided,
-                 detrend_style, ntmodel, is_cplx, nch=None):
+                 detrend_style, ntmodel, is_cplx, nch=None, taps=None):
     """The kernel ``fft_backend='pallas'`` takes for a geometry, following
     the JAX package's gates (``pyfft_tpu/spectral.py:398-479``) gate for
     gate: ``'H'`` (kernel H, :mod:`~pyfft_tpu_torch.ops.welch_packed`)
@@ -315,108 +298,107 @@ def pallas_route(*, nwins, noverlap, navr, nnyquist, onesided,
     else ``'E'`` (kernel E, :mod:`~pyfft_tpu_torch.ops.welch_v1`) where
     the gate of TPU kernel #7 holds, else None (the ``torch.fft`` core),
     which happens only where the JAX package too leaves Pallas for
-    ``'mxu'``."""
-    from .ops.welch import pallas_welch2_applicable
-    from .ops.welch_packed import packed_pair_geometry
-    from .ops.welch_v1 import pallas_welch_applicable
+    ``'mxu'``.  With FIR ``taps`` (:func:`welch_filtered_cross_spectra`)
+    it is ``'B'`` where kernel B takes them, else None."""
     if ntmodel or is_cplx == onesided:
         # per-segment reference model, one-sided complex or two-sided real
         return None
-    if (os.environ.get("PYFFT_PACKED") == "1" and not is_cplx and nch == 1
-            and detrend_style in (0, 1)
+    if (taps is None and os.environ.get("PYFFT_PACKED") == "1"
+            and not is_cplx and nch == 1 and detrend_style in (0, 1)
             and packed_pair_geometry(navr, nwins, noverlap) is not None):
         return "H"
-    if pallas_welch2_applicable(nwins, noverlap, navr,
-                                detrend_style=detrend_style):
+    if welch.pallas_welch2_applicable(nwins, noverlap, navr, taps=taps,
+                                      detrend_style=detrend_style):
         return "B"
-    if not is_cplx and pallas_welch_applicable(nwins, nnyquist, navr):
+    if (taps is None and not is_cplx
+            and welch_v1.pallas_welch_applicable(nwins, nnyquist, navr)):
         return "E"
     return None
 
 
-def _kernel_sums(route, x, y, win, nfreq, *, navr, nwins, hop):
-    """``(Pxx, Pyy, Pxy_re, Pxy_im)`` of ``x (nt,)`` against ``y (nch,
-    nt)`` summed over ``navr`` segments, unscaled and without detrend,
-    through the kernel ``route`` (``'B'``, ``'E'`` or ``'H'``) names: on
-    CUDA tensors the kernel, on CPU tensors its plain version.  The
-    streaming and mesh tiers sum blocks they have detrended themselves
-    with it."""
-    from .ops import welch, welch_v1
-    kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=0)
+def _kernel_block(route, x, y, win, nfreq, norm, *, navr, nwins, hop,
+                  taps=None, detrend_style=0):
+    """The result block (:mod:`~.ops.welch`) of the kernel ``route`` on ``x
+    (nt,)`` against ``y (nch, nt)``: on CUDA tensors the kernel, on CPU
+    tensors its plain version."""
+    kw = dict(navr=navr, nwins=nwins, hop=hop, detrend_style=detrend_style)
     if route == "E":
-        return welch_v1._run(x, y, win, nfreq, 1.0, **kw)
-    return welch._run(x, y, win, nfreq, 1.0, taps=None, packed=route == "H",
+        return welch_v1._run(x, y, win, nfreq, norm, **kw)
+    return welch._run(x, y, win, nfreq, norm, taps=taps, packed=route == "H",
                       **kw)
 
 
-def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
-                       nfft, nnyquist, onesided, detrend_style, ntmodel):
-    """The kernel Welch paths (:func:`pallas_route`) as tensors on the
-    inputs' device, or None where no kernel's gate holds.
+def _kernel_sums(route, x, y, win, nfreq, *, navr, nwins, hop):
+    """``(Pxx, Pyy, Pxy_re, Pxy_im)`` of :func:`_kernel_block`, unscaled
+    and without detrend: the streaming and mesh tiers' segment sums."""
+    return welch._split(_kernel_block(route, x, y, win, nfreq, 1.0,
+                                      navr=navr, nwins=nwins, hop=hop))
 
-    ``x (nt,)``, ``y (nch, nt)`` tensors.  Returns ``(Pxx (nfreq,), Pyy
-    (nfreq, nch), Pxy_re, Pxy_im)`` in float32, averaged and normalised,
-    one-sided doubled or ``fftshift``-ed.  The one-sided bin doubling is a
-    *vector* scale, so the scalar ``norm`` handed to the kernel carries
-    only ``S1^2*ENBW*navr`` and the vector is applied to the (small)
-    averaged outputs here.
+
+def _welch_core_pallas(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
+                       nfft, nnyquist, onesided, detrend_style, ntmodel,
+                       taps=None):
+    """The kernel Welch paths (:func:`pallas_route`; with ``taps``, the
+    fused FIR chain) as the float32 result block ``(1 + nch, 3, nfreq)``
+    on the inputs' device, or None where no kernel's gate holds.
+
+    ``x (nt,)``, ``y (nch, nt)`` tensors, cast to float32 (complex64 where
+    either is complex).  The block is averaged and normalised, one-sided
+    doubled or ``fftshift``-ed.  The one-sided bin doubling is a *vector*
+    scale, so the scalar ``norm`` handed to the kernel carries only
+    ``S1^2*ENBW*navr`` and :func:`_fold_bins` applies the vector to the
+    (small) block.
     """
-    from .ops.welch import welch_fir_pallas_fused, welch_pallas3_twosided
-    from .ops.welch_packed import welch_pair_packed
-    from .ops.welch_v1 import welch_pallas_fused
     is_cplx = x.is_complex() or y.is_complex()
     route = pallas_route(nwins=nwins, noverlap=noverlap, navr=navr,
                          nnyquist=nnyquist, onesided=onesided,
                          detrend_style=detrend_style, ntmodel=ntmodel,
-                         is_cplx=is_cplx, nch=y.shape[0])
+                         is_cplx=is_cplx, nch=y.shape[0], taps=taps)
     if route is None:
         return None
-    norm = np.float32(1.0 / (s1sq_enbw * navr))
-    kw = dict(navr=navr, nwins=nwins, noverlap=noverlap,
-              detrend_style=detrend_style)
-    if is_cplx:
-        # fused two-sided complex path (the Doppler IQ configuration)
-        out = welch_pallas3_twosided(x, y, win, norm, **kw)
-        Pxx, Pyy, Pr, Pi = (torch.fft.fftshift(a, dim=-1) for a in out)
-    else:
-        fused = {"B": welch_fir_pallas_fused, "E": welch_pallas_fused,
-                 "H": welch_pair_packed}[route]
-        Pxx, Pyy, Pr, Pi = fused(x, y, win, nnyquist, norm, **kw)
-        sc = _power_scale_on(nfft, nnyquist, str(Pxx.device))
-        Pxx, Pyy, Pr, Pi = Pxx * sc, Pyy * sc, Pr * sc, Pi * sc
-    return Pxx, Pyy.T, Pr.T, Pi.T
+    x, y = welch._signals(x, y, torch.complex64 if is_cplx else torch.float32)
+    block = _kernel_block(route, x, y, win, nwins if is_cplx else nnyquist,
+                          np.float32(1.0 / (s1sq_enbw * navr)), navr=navr,
+                          nwins=nwins, hop=nwins - noverlap, taps=taps,
+                          detrend_style=detrend_style)
+    return _fold_bins(block, nfft, nnyquist, onesided)
+
+
+def _host_spectra(block, real, cplx):
+    """``Pxx (nfreq,)``, ``Pyy (nfreq, nch)`` as ``real`` and ``Pxy`` as
+    ``cplx`` from a block of :func:`_welch_core_pallas`, in one copy to the
+    host; no per-segment arrays."""
+    P = _np(block)
+    return dict(Pxx=P[0, 0].astype(real), Pyy=P[1:, 0].T.astype(real),
+                Pxy=(P[1:, 1] + 1j * P[1:, 2]).T.astype(cplx),
+                **dict.fromkeys(_SEGMENT_FIELDS[:5]))
 
 
 def _run_welch_core(x_in, y_in, win, s1sq_enbw, *, backend, **static):
     """Dispatch to a transform path; returns NumPy segment results.
     ``x_in (nt,)`` and ``y_in (nt, nch)`` are tensors on one device."""
     if backend == "pallas":
-        out = _welch_core_pallas(x_in, y_in.T, win, s1sq_enbw, **static)
-        if out is not None:
-            # no per-segment arrays on the kernel paths
-            Pxx, Pyy, Pr, Pi = (_np(a) for a in out)
-            return dict(Pxx=Pxx.astype(np.complex128),
-                        Pyy=Pyy.astype(np.complex128), Pxy=Pr + 1j * Pi,
-                        **_NO_SEGMENTS)
+        block = _welch_core_pallas(x_in, y_in.T, win, s1sq_enbw, **static)
+        if block is not None:
+            return _host_spectra(block, np.complex128, np.complex64)
     out = _welch_core_xla(x_in, y_in.T, win, s1sq_enbw, **static)
     return {k: _np(v) for k, v in out.items()}
 
 
+def _put_segments(info, out):
+    """The reference's ``P??_seg``/``?fft_seg`` fields of ``info``
+    (``fft_analysis.py:391-393``) from a core's NumPy ``out``."""
+    for f in _SEGMENT_FIELDS[:5]:
+        setattr(info, f, out[f])
+    info.phixy_seg = np.angle(out["Pxy_seg"])
+    info.varphi_seg = np.zeros_like(info.phixy_seg)
+
+
 def _make_segment_fill(x_in, y_in, win, s1sq_enbw, **static):
     """One-shot per-segment recompute for the fused path (lazy fill): runs
-    the ``'xla'`` core over the retained inputs and writes the reference's
-    ``P??_seg``/``?fft_seg`` fields (``fft_analysis.py:391-393``)."""
-    def fill(info):
-        out = _run_welch_core(x_in, y_in, win, s1sq_enbw, backend="xla",
-                              **static)
-        info.Pxx_seg = out["Pxx_seg"]
-        info.Pyy_seg = out["Pyy_seg"]
-        info.Pxy_seg = out["Pxy_seg"]
-        info.Xfft_seg = out["Xfft_seg"]
-        info.Yfft_seg = out["Yfft_seg"]
-        info.phixy_seg = np.angle(out["Pxy_seg"])
-        info.varphi_seg = np.zeros_like(info.phixy_seg)
-    return fill
+    the ``'xla'`` core over the retained inputs into :func:`_put_segments`."""
+    return lambda info: _put_segments(info, _run_welch_core(
+        x_in, y_in, win, s1sq_enbw, backend="xla", **static))
 
 
 def _make_segment_fill_sharded(x_in, y_in, win, s1sq_enbw, mesh, fs,
@@ -447,21 +429,12 @@ def _make_segment_fill_sharded(x_in, y_in, win, s1sq_enbw, mesh, fs,
         P = torch.cat([(X.real ** 2 + X.imag ** 2)[None].to(XY.dtype),
                        (Ys.real ** 2 + Ys.imag ** 2).to(XY.dtype),
                        Ys * X.conj()[None]])
-        nfft, nnyq = static["nfft"], static["nnyquist"]
-        if static["onesided"]:
-            P = P[..., :nnyq] * torch.as_tensor(
-                _onesided_power_scale(nfft, nnyq), device=P.device)
-        else:
-            P = torch.fft.fftshift(P, dim=-1)
-        P = _np(P * (1.0 / s1sq_enbw))
+        P = _np(_fold_bins(P, static["nfft"], static["nnyquist"],
+                           static["onesided"]) * (1.0 / s1sq_enbw))
         nch = Ys.shape[0]
-        info.Pxx_seg = P[0]
-        info.Pyy_seg = P[1:1 + nch]
-        info.Pxy_seg = P[1 + nch:]
-        info.Xfft_seg = _np(X)
-        info.Yfft_seg = _np(Ys)
-        info.phixy_seg = np.angle(info.Pxy_seg)
-        info.varphi_seg = np.zeros_like(info.phixy_seg)
+        _put_segments(info, dict(Pxx_seg=P[0], Pyy_seg=P[1:1 + nch],
+                                 Pxy_seg=P[1 + nch:], Xfft_seg=_np(X),
+                                 Yfft_seg=_np(Ys)))
     return fill
 
 
@@ -474,7 +447,7 @@ def welch_cross_spectra(x, y, win, plan: seg.SegmentPlan, fs: float, *,
     docstring for the device).  Returns a dict with ``freq`` plus
     per-segment and averaged spectra (NumPy, complex where applicable).
     """
-    dev = _device(device, x, y)
+    dev = resolve_device(device, x, y)
     win = np.asarray(win)
     s1 = seg.get_s1(win)
     enbw = seg.get_enbw(fs, s1, seg.get_s2(win))
@@ -512,10 +485,8 @@ def welch_filtered_cross_spectra(x, y, taps, win, plan: seg.SegmentPlan,
     spectra; per-segment arrays are ``None`` on the fused path).
     """
     with stage("welch_filtered_cross_spectra"):
-        from .ops.welch import welch_fir_pallas_fused, pallas_welch2_applicable
-
         with stage("welch_filtered_cross_spectra.args"):
-            dev = _device(device, x, y)
+            dev = resolve_device(device, x, y)
             x = _tensor(x, dev)
             y2 = _tensor(y, dev)
             if y2.dim() == 1:
@@ -527,29 +498,20 @@ def welch_filtered_cross_spectra(x, y, taps, win, plan: seg.SegmentPlan,
             backend = fft_backend
             if backend not in ("xla", "mxu", "pallas"):
                 backend = "pallas" if dev.type == "cuda" else "xla"
-            fused = (backend == "pallas"
-                     and not x.is_complex() and not y2.is_complex()
-                     and detrend_style in (0, 1)
-                     and pallas_welch2_applicable(plan.nwins, plan.noverlap,
-                                                  plan.navr, y2.shape[0],
-                                                  taps_np, detrend_style))
-        if fused:
-            norm = np.float32(1.0 / (s1 ** 2 * enbw * plan.navr))
-            Pxx, Pyy, Pr, Pi = welch_fir_pallas_fused(
-                x, y2, win_np, plan.nnyquist, norm, navr=plan.navr,
-                nwins=plan.nwins, noverlap=plan.noverlap, taps=taps_np,
-                detrend_style=int(detrend_style))
+        block = None
+        if backend == "pallas":
+            block = _welch_core_pallas(
+                x, y2, win_np, s1 ** 2 * enbw, navr=plan.navr,
+                nwins=plan.nwins, noverlap=plan.noverlap, nfft=plan.nfft,
+                nnyquist=plan.nnyquist, onesided=True,
+                detrend_style=int(detrend_style), ntmodel=False,
+                taps=taps_np)
+        if block is not None:
             with stage("welch_filtered_cross_spectra.finalize"):
-                sc = _onesided_power_scale(plan.nfft, plan.nnyquist)
-                out = dict(Pxx=_np(Pxx) * sc,
-                           Pyy=(_np(Pyy) * sc).T,
-                           Pxy=((_np(Pr) + 1j * _np(Pi)) * sc).T,
-                           **_NO_SEGMENTS)
+                out = _host_spectra(block, np.float64, np.complex128)
                 freq = np.fft.fftfreq(plan.nfft, 1.0 / fs)
                 out["freq"] = freq[:plan.nnyquist]
             return out
-        from .filters import _fir_filter
-        from .ops.fir import PALLAS_FIR_MAX_TAPS
         # on the card the filter-first route filters with kernel A, the role
         # the FIR kernel plays as the feeder of the JAX package's unfused path
         fir_backend = ("pallas" if dev.type == "cuda"
@@ -675,7 +637,7 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
     if tbounds is None:
         tbounds = [tvec[0], tvec[-1]]
 
-    dev = _device(device, sigx, sigy)
+    dev = resolve_device(device, sigx, sigy)
     with stage("fft_pwelch.h2d"):
         sigx = _tensor(sigx, dev)
         if sigy is None:
@@ -856,18 +818,9 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
             fftinfo._defer_segments(_make_segment_fill(
                 x_in, y_in, win, fftinfo.S1 ** 2 * fftinfo.ENBW, **static))
         else:
-            fftinfo.Pxx_seg = out["Pxx_seg"]
-            fftinfo.Pyy_seg = out["Pyy_seg"]
-            fftinfo.Pxy_seg = out["Pxy_seg"]
-            fftinfo.Xfft_seg = out["Xfft_seg"]
-            fftinfo.Yfft_seg = out["Yfft_seg"]
-            fftinfo.phixy_seg = np.angle(out["Pxy_seg"])
-            fftinfo.varphi_seg = np.zeros_like(fftinfo.phixy_seg)
+            _put_segments(fftinfo, out)
 
     # ---------------- shared finalization (host, reference :489-648) -------
-    Pxx = np.asarray(Pxx)
-    Pyy = np.asarray(Pyy)
-    Pxy = np.asarray(Pxy)
     Cxy, Cxy2 = Cxy_Cxy2(Pxx, Pyy, Pxy)
 
     # Bendat'78-derived coherence variance (reference :496-498)

@@ -27,8 +27,8 @@ __all__ = ["specgram", "stft", "test_case", "STFT"]
 def _power_frames(s, win, wl, hop, nwin):
     """``|fft(frame * win)|^2`` of ``nwin`` frames of ``wl`` samples every
     ``hop``: ``(nwin, wl)`` NumPy, in the signal's precision."""
-    from .spectral import _device, _np, _tensor
-    s = _tensor(np.asarray(s), _device(None))
+    from .config import _np, _tensor, resolve_device
+    s = _tensor(np.asarray(s), resolve_device(None))
     w = torch.as_tensor(np.asarray(win), dtype=s.dtype, device=s.device)
     X = torch.fft.fft(seg.frame_signal(s, wl, hop, nwin) * w, dim=-1)
     return _np(X.real ** 2 + X.imag ** 2)

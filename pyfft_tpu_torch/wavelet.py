@@ -27,8 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import resolve_device
-from .spectral import _np
+from .config import _np, resolve_device
 
 __all__ = ["Morlet", "cwt", "icwt", "global_spectrum"]
 

@@ -1229,9 +1229,9 @@ def test_resident_chain_marks_its_stages_on_card(cuda_device, tmp_path):
     """A profiled call of welch_filtered_cross_spectra on signals already on
     the card, after a warm call: the call's range holds its arguments,
     kernel B's prologue and launch (which holds the filter of x ahead) and
-    the finalization, in that order, and the finalization the four copies
-    back (Pxx, Pyy, Pxy's two parts); the call launches kernel B once and
-    copies nothing from the host."""
+    the finalization, in that order, and the finalization the one copy
+    back (the result block); the call launches kernel B once and copies
+    nothing from the host."""
     import json
     rng = np.random.default_rng(21)
     nt, nch = 1 << 20, 8
@@ -1269,7 +1269,7 @@ def test_resident_chain_marks_its_stages_on_card(cuda_device, tmp_path):
     (_, llo, lhi), (_, xlo, xhi) = stages[3:5]
     assert llo <= xlo <= xhi <= lhi
     _, flo, fhi = stages[-1]
-    assert len(copies) == 4
+    assert len(copies) == 1
     assert all(flo <= s <= e <= fhi for _, s, e in copies)
     assert not [e["name"] for e in events if e.get("cat") == "gpu_memcpy"
                 and "HtoD" in e["name"]]

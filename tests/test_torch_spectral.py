@@ -218,6 +218,77 @@ def test_welch_filtered_cross_spectra_matches_jax(backend):
         _close(rp[k], rj[k], rtol, floor, k)
 
 
+@pytest.mark.parametrize("route", ["B_filtered", "B", "B_complex", "E",
+                                   "H"])
+def test_kernel_routes_equal_their_entries_bit_for_bit(route, monkeypatch):
+    """Every kernel route of the front doors returns, bit for bit and in
+    its dtype, the four outputs of the route's JAX-named entry scaled and
+    assembled by hand: the fused chain (kernel B with 5 taps) with the
+    one-sided doubling in float64 on the host; fft_pwelch's kernel B, E and
+    (``PYFFT_PACKED=1``, one channel) H with the doubling in float32, and
+    two-sided kernel B ``fftshift``-ed, ``Pxx``/``Pyy`` complex128 and
+    ``Pxy`` complex64."""
+    from pyfft_tpu_torch.ops import welch as pw
+    from pyfft_tpu_torch.ops import welch_packed as pk
+    from pyfft_tpu_torch.ops import welch_v1 as pv
+    nch = 1 if route == "H" else 3
+    _, x, y = _signals(N=2 ** 14, nch=nch, cplx=route == "B_complex")
+    if route == "H":
+        monkeypatch.setenv("PYFFT_PACKED", "1")
+    if route == "B_filtered":
+        taps = np.hanning(7)[1:-1] / 3.0
+        win = np.hanning(1024)
+        plan = pseg.plan_segments(x.size, nwins=1024, windowoverlap=0.5)
+        got = psp.welch_filtered_cross_spectra(x, y, taps, win, plan, 1e3,
+                                               fft_backend="pallas")
+        s1 = pseg.get_s1(win)
+        enbw = pseg.get_enbw(1e3, s1, pseg.get_s2(win))
+        Pxx, Pyy, Pr, Pi = (a.numpy() for a in pw.welch_fir_pallas_fused(
+            x, y, win, plan.nnyquist, np.float32(1.0 / (s1 ** 2 * enbw
+                                                        * plan.navr)),
+            navr=plan.navr, nwins=1024, noverlap=plan.noverlap, taps=taps))
+        sc = psp._onesided_power_scale(plan.nfft, plan.nnyquist)
+        want = dict(Pxx=Pxx * sc, Pyy=(Pyy * sc).T,
+                    Pxy=((Pr + 1j * Pi) * sc).T)
+    else:
+        t = np.arange(x.size, dtype=np.float64)       # fs 1: nwins = tper
+        r = pt.fft_pwelch(t, x, y, tbounds=[t[8], t[-8]],
+                          tper=1000 if route == "E" else 1024,
+                          fft_backend="pallas", plotit=False)
+        info = r[6]
+        assert psp.pallas_route(
+            nwins=info.nwins, noverlap=info.noverlap, navr=info.Navr,
+            nnyquist=info.Nnyquist, onesided=route != "B_complex",
+            detrend_style=1, ntmodel=False, is_cplx=route == "B_complex",
+            nch=nch) == route[0]
+        i0, i1 = info.ibnds
+        xs, ys = x[i0:i1], y[:, i0:i1]
+        norm = np.float32(1.0 / (info.S1 ** 2 * info.ENBW * info.Navr))
+        kw = dict(navr=info.Navr, nwins=info.nwins, noverlap=info.noverlap)
+        if route == "B_complex":
+            four = [torch.fft.fftshift(a, dim=-1) for a in
+                    pw.welch_pallas3_twosided(xs, ys, info.win, norm, **kw)]
+        else:
+            if route == "H":
+                four = pk.welch_pair_packed(xs, ys[0], info.win,
+                                            info.Nnyquist, norm, **kw)
+            else:
+                entry = {"B": pw.welch_fir_pallas_fused,
+                         "E": pv.welch_pallas_fused}[route]
+                four = entry(xs, ys, info.win, info.Nnyquist, norm, **kw)
+            sc = torch.as_tensor(psp._onesided_power_scale(info.nfft,
+                                                           info.Nnyquist),
+                                 dtype=torch.float32)
+            four = [a * sc for a in four]
+        Pxx, Pyy, Pr, Pi = (a.numpy() for a in four)
+        want = dict(Pxx=Pxx.astype(np.complex128),
+                    Pyy=Pyy.T.astype(np.complex128), Pxy=Pr.T + 1j * Pi.T)
+        got = dict(Pxx=r[2], Pyy=r[3], Pxy=r[1])
+    for k in ("Pxx", "Pyy", "Pxy"):
+        assert got[k].dtype == want[k].dtype, k
+        assert np.array_equal(got[k], want[k].reshape(got[k].shape)), k
+
+
 def test_cpu_default_of_filtered_chain_is_filter_first():
     rng = np.random.default_rng(5)
     x = rng.standard_normal(4096)

@@ -7,7 +7,7 @@ them.
 - ``welch_filtered_cross_spectra`` marks the call, its arguments and, on
   the kernel path, its finalization, nested; CPU tensors are never copied,
   so no ``copy.d2h`` range appears.  (The card's ranges, kernel B's
-  ``welch_cuda.prologue`` and ``welch_cuda.launch`` and the four copies
+  ``welch_cuda.prologue`` and ``welch_cuda.launch`` and the one copy
   back, are held in ``tests/test_torch_cuda.py``.)
 - The readers ``enqueue_ms``, ``host_syncs_per_call``,
   ``return_exposed_ms`` and ``finalize_ms`` on a hand-built trace of two

@@ -227,9 +227,10 @@ def test_entries_raise_as_jax_does():
 
 def test_pyfft_packed_route_matches_jax(monkeypatch):
     """welch_cross_spectra('pallas') on one real channel with
-    PYFFT_PACKED=1: route 'H' (welch_pair_packed) on both sides, float32
-    kernels: 5e-5 relative with a floor of 1e-9 (as
-    tests/test_torch_spectral.py holds the pallas route)."""
+    PYFFT_PACKED=1: route 'H' on both sides (the port's kernel core runs
+    ``ops.welch._run`` packed, kernel H), float32 kernels: 5e-5 relative
+    with a floor of 1e-9 (as tests/test_torch_spectral.py holds the pallas
+    route)."""
     rng = np.random.default_rng(9)
     nt, fs = 1 << 15, 1e6
     t = np.arange(nt) / fs
@@ -239,13 +240,14 @@ def test_pyfft_packed_route_matches_jax(monkeypatch):
     plan_p = pseg.plan_segments(nt, nwins=1024, windowoverlap=0.5)
     win = np.hanning(1025)[:-1]
     calls = []
-    real = pwp.welch_pair_packed
+    real = pw._run
 
     def spy(*a, **k):
-        calls.append(k["navr"])
+        if k.get("packed"):
+            calls.append(k["navr"])
         return real(*a, **k)
 
-    monkeypatch.setattr(pwp, "welch_pair_packed", spy)
+    monkeypatch.setattr(pw, "_run", spy)
     monkeypatch.setenv("PYFFT_PACKED", "1")
     assert psp.pallas_route(nwins=1024, noverlap=512, navr=plan_p.navr,
                             nnyquist=513, onesided=True, detrend_style=1,
