@@ -46,6 +46,8 @@ _SIGNATURES = {
     "pyfft_welch_pair": ([_P, _P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _D, _P], _I),
     "pyfft_welch_pair_resident": ([_I, _I], _I),
+    "pyfft_welch_means": ([_P, _P, _LL, _P, _P, _LL, _P, _I, _I, _I, _P, _P],
+                          _I),
     "pyfft_stft": ([_P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                     ctypes.c_float, _P], _I),
     "pyfft_hilbert": ([_P, _P, _P, _I, _I, _P], _I),

@@ -26,10 +26,13 @@ nfreq)`` result block (row 0 ``Pxx``, row ``1 + c`` channel ``c``'s
   channel, with the same bits.  The per-signal means of
   the filtered signals come from the unfiltered sums by the moment
   identity ``sum(conv(x, t)[:nt]) = sum_k t_k (S - T_k)`` (``T_k`` the sum
-  of the last ``k`` samples), an O(C*K) float64 prologue in plain torch, as
-  the JAX package computes it in XLA outside its kernel.  The window and
-  the taps go to the card once per (content, device): after the first
-  call with them, a call copies nothing from the host.
+  of the last ``k`` samples), in float64, as the JAX package computes it
+  in XLA outside its kernel: on the card two float32 block sums (x's and
+  y's) and the means kernel (``csrc/means.cu``, one launch for every
+  signal), the call's first device work; :func:`_means_plain` is the same
+  arithmetic in torch, which CPU tensors run.  The window and the taps go
+  to the card once per (content, device): after the first call with
+  them, a call copies nothing from the host.
 - On CPU tensors :func:`welch_plain` runs: ``fir_plain`` -> mean ->
   frames -> window -> ``torch.fft.fft`` -> sums, in the input's dtype.
 - ``welch_cuda(..., packed=True)`` is kernel H (the packed entries of
@@ -39,14 +42,16 @@ nfreq)`` result block (row 0 ``Pxx``, row ``1 + c`` channel ``c``'s
 ``LAUNCHES`` counts the launches of kernel B on real signals,
 ``COMPLEX_LAUNCHES`` those on complex signals and ``PACKED_LAUNCHES``
 those of kernel H; ``X_PREFILTERS`` the calls that filtered x ahead (each
-also a launch of kernel A in ``ops.fir.LAUNCHES``).  In a
+also a launch of kernel A in ``ops.fir.LAUNCHES``); ``MEANS_LAUNCHES`` the
+calls whose means came from the means kernel.  In a
 ``torch.profiler`` trace :func:`welch_cuda` marks two ranges
 (:class:`pyfft_tpu_torch.utils.profiling.stage`), for kernels B and H
 alike: ``welch_cuda.prologue``, the argument checks and the enqueue of
-the means prologue, and ``welch_cuda.launch``, the window, taps and
-twiddles lookups, the library, the buffers, the launch and the mirrored
-bins; inside the latter ``welch_cuda.x_filter`` holds kernel A's enqueue
-where x is filtered ahead.  The entries compute on the port's device
+the means (three device operations, none waited on), and
+``welch_cuda.launch``, the window, taps and twiddles lookups, the
+library, the buffers, the launch and the mirrored bins; inside the
+latter ``welch_cuda.x_filter`` holds kernel A's enqueue where x is
+filtered ahead.  The entries compute on the port's device
 (:func:`pyfft_tpu_torch.config.resolve_device`): ``device=``, else the
 first tensor argument's, else the package default, else the card.
 
@@ -83,7 +88,7 @@ from .fir import fir_plain, PALLAS_FIR_MAX_TAPS
 __all__ = ["welch_fir_pallas3", "welch_fir_pallas_fused",
            "welch_pallas3_twosided", "pallas_welch2_applicable",
            "welch_plain", "welch_cuda", "LAUNCHES", "COMPLEX_LAUNCHES",
-           "PACKED_LAUNCHES", "X_PREFILTERS"]
+           "PACKED_LAUNCHES", "X_PREFILTERS", "MEANS_LAUNCHES"]
 
 _MIN_NWINS = 16
 _MAX_NWINS = 16384
@@ -92,6 +97,7 @@ LAUNCHES = 0
 COMPLEX_LAUNCHES = 0
 PACKED_LAUNCHES = 0
 X_PREFILTERS = 0
+MEANS_LAUNCHES = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -180,6 +186,15 @@ def _twiddles(nwins: int, device: str) -> torch.Tensor:
 _SUM_BLOCK = 4096
 
 
+def _block_sums(rows: torch.Tensor) -> torch.Tensor:
+    """The float32 (complex64) sums of the whole blocks of 4096 samples of
+    each row of ``rows (R, nt)``: :func:`_row_sums`' first step, and what
+    the means kernel is fed."""
+    m = rows.shape[-1] - rows.shape[-1] % _SUM_BLOCK
+    return rows[:, :m].reshape(rows.shape[0], m // _SUM_BLOCK,
+                               _SUM_BLOCK).sum(-1)
+
+
 def _row_sums(rows: torch.Tensor) -> torch.Tensor:
     """float64 (complex128 for complex rows) sums of the rows of ``rows
     (R, nt)``: float32 sums of blocks of 4096 samples (a view of
@@ -187,9 +202,7 @@ def _row_sums(rows: torch.Tensor) -> torch.Tensor:
     cast a float64 copy of the whole signal first."""
     wide = torch.complex128 if rows.is_complex() else torch.float64
     m = rows.shape[-1] - rows.shape[-1] % _SUM_BLOCK
-    blocks = rows[:, :m].reshape(rows.shape[0], m // _SUM_BLOCK,
-                                 _SUM_BLOCK).sum(-1)
-    return blocks.to(wide).sum(-1) + rows[:, m:].to(wide).sum(-1)
+    return _block_sums(rows).to(wide).sum(-1) + rows[:, m:].to(wide).sum(-1)
 
 
 @lru_cache(maxsize=32)
@@ -223,9 +236,10 @@ def _moment_means(rows: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     return ((S[:, None] - T) @ t.to(S.dtype)) / nt
 
 
-def _means(x, y, taps, detrend_style, cplx):
+def _means_plain(x, y, taps, detrend_style, cplx):
     """Kernel B's ``means`` operand: one value per signal (re, im pairs
-    for complex signals), reference first."""
+    for complex signals), reference first, in torch (the means kernel's
+    plain version)."""
     n = (1 + y.shape[0]) * (2 if cplx else 1)
     if detrend_style != 1:
         return torch.zeros(n, dtype=torch.float32, device=x.device)
@@ -234,6 +248,34 @@ def _means(x, y, taps, detrend_style, cplx):
         m = _moment_means(sig, taps)
         parts.append(torch.view_as_real(m).reshape(-1) if cplx else m)
     return torch.cat(parts).to(torch.float32)
+
+
+def _means(x, y, taps, detrend_style, cplx):
+    """:func:`_means_plain`'s operand; with mean detrend on CUDA tensors
+    from the means kernel (``csrc/means.cu``): the float32 block sums of x
+    and of y, then one launch for every signal, nothing that waits on the
+    card."""
+    global MEANS_LAUNCHES
+    if detrend_style != 1 or not x.is_cuda:
+        return _means_plain(x, y, taps, detrend_style, cplx)
+    nch = y.shape[0]
+    x_blk = _block_sums(x[None])
+    y_blk = _block_sums(y) if nch else x_blk
+    dev = x.device
+    t = _device_copy(np.ascontiguousarray(taps, np.float64).tobytes(),
+                     "float64", str(dev))
+    parts = 2 if cplx else 1
+    means = torch.empty((1 + nch) * parts, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.pyfft_welch_means(
+            x.data_ptr(), (y if nch else x).data_ptr(),
+            y.stride(0) * parts if nch else 0, x_blk.data_ptr(),
+            y_blk.data_ptr(), x.shape[0], t.data_ptr(), int(taps.size), nch,
+            parts, means.data_ptr(), stream), "means kernel")
+    MEANS_LAUNCHES += 1
+    return means
 
 
 def _pair_groups(navr: int, nch: int, resident: int) -> int:
@@ -316,13 +358,14 @@ def _launch(x, y, win, nfreq, norm, *, navr, nwins, hop, taps=None,
         if (navr - 1) * hop + nwins > nt:
             raise ValueError(f"{navr} segments of {nwins} every {hop} do not "
                              f"fit {nt} samples")
+        taps64 = (np.ones(1) if taps is None
+                  else np.asarray(taps, dtype=np.float64).ravel())
+        # the card's first work of the call: the rest is enqueued meanwhile
+        means = _means(x, y, taps64, detrend_style, cplx)
         win32 = np.ascontiguousarray(np.asarray(win), dtype=np.float32)
         if win32.shape != (nwins,):
             raise ValueError(f"window of shape {win32.shape}, need ({nwins},)")
-        taps64 = (np.ones(1) if taps is None
-                  else np.asarray(taps, dtype=np.float64).ravel())
         dev = x.device
-        means = _means(x, y, taps64, detrend_style, cplx)
     with stage("welch_cuda.launch"):
         w = _window(win32.tobytes(), str(dev))
         t = _device_copy(taps64.astype(np.float32).tobytes(), "float32",

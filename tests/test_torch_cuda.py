@@ -352,6 +352,125 @@ def test_welch_filters_x_ahead_once_a_call_on_card(cuda_device, tmp_path, nch,
             and e["name"] == "welch_cuda.x_filter"] == ["welch_cuda.x_filter"]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,nt,K,cplx", [
+    (8, 1 << 20, 129, False),     # the resident cell's shape, scaled down
+    (3, 100003, 129, False),      # nt % 4096 != 0: a remainder
+    (8, 1 << 20, 1, False),       # a single tap
+    (3, 70001, 129, True),        # complex64, two parts a signal
+    (2, 4097, 2, True),
+    (0, 1 << 16, 129, False),     # kernel H: one signal
+    (1, 1 << 16, 129, False),     # kernel H: one pair
+    (2, 700, 1024, False),        # the tail longer than the signal
+])
+def test_welch_means_kernel_matches_its_twin_on_card(cuda_device, nch, nt, K,
+                                                     cplx):
+    """The means kernel (csrc/means.cu) gives its torch twin's operand on
+    the same CUDA tensors, equal on these seeded inputs (the same float64
+    arithmetic in another order), one launch a call, and within one
+    float32 ulp of the moment identity in float64 on the CPU; without
+    detrend the operand is zeros and nothing is launched."""
+    rng = np.random.default_rng(nt + K)
+    x = rng.standard_normal(nt) + 0.3
+    y = rng.standard_normal((nch, nt)) - 0.2
+    dt = torch.float32
+    if cplx:
+        x = x + 1j * (rng.standard_normal(nt) - 0.1)
+        y = y + 1j * (rng.standard_normal((nch, nt)) + 0.4)
+        dt = torch.complex64
+    xt = torch.as_tensor(x, dtype=dt, device=cuda_device)
+    yt = torch.as_tensor(y, dtype=dt, device=cuda_device)
+    taps = rng.standard_normal(K) / K
+    before = pw.MEANS_LAUNCHES
+    got = pw._means(xt, yt, taps, 1, cplx)
+    assert pw.MEANS_LAUNCHES == before + 1
+    assert torch.equal(got, pw._means_plain(xt, yt, taps, 1, cplx))
+    rows = torch.cat([xt[None], yt]).cpu()
+    ref = pw._moment_means(rows.to(torch.complex128 if cplx
+                                   else torch.float64), taps)
+    ref = (torch.view_as_real(ref) if cplx else ref).reshape(-1).numpy()
+    ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+    assert (np.abs(got.cpu().numpy() - ref) <= ulp).all()
+    zero = pw._means(xt, yt, taps, 0, cplx)
+    assert pw.MEANS_LAUNCHES == before + 1
+    assert zero.shape == got.shape and not zero.any()
+
+
+@pytest.mark.cuda
+def test_resident_call_enqueues_three_prologue_operations_on_card(
+        cuda_device, tmp_path):
+    """At the resident cell's geometry (8 channels and x of 2^25 float32
+    on the card, 129 taps, nwins 2048, 50% overlap), a warm
+    welch_filtered_cross_spectra call takes its means from the means
+    kernel once; its prologue launches three device operations (x's and
+    y's block sums, the means kernel) and neither the prologue nor the
+    launch stage waits on the card; the calls run 8 device operations
+    each (kernels, copies and memsets), as the benchmark's
+    ``device_ops_per_call`` reads them over a traced stretch of calls.
+    An operation counts for the calls whose spans hold its launch (by
+    the trace's correlation ids, which an offset between the device's
+    and the host's clocks in the trace does not move).  The profiler has
+    been seen to leave device operations out of a window that holds one
+    call, for no known cause, so a spin kernel and an uncounted call open
+    the window, as the benchmark's stretch of calls has no such edge."""
+    import json
+    nt, nch, ncalls = 1 << 25, 8, 4
+    g = torch.Generator(device=cuda_device).manual_seed(30)
+    x = torch.randn(nt, generator=g, device=cuda_device) + 0.3
+    y = torch.randn((nch, nt), generator=g, device=cuda_device) - 0.2
+    taps = np.random.default_rng(30).standard_normal(129) / 129
+    plan = pseg.plan_segments(nt, nwins=2048, windowoverlap=0.5)
+    win = np.hanning(2048)
+
+    def call():
+        return pt.welch_filtered_cross_spectra(x, y, taps, win, plan, 1e6)
+
+    call()
+    torch.cuda.synchronize()
+    before = pw.MEANS_LAUNCHES
+    with pprof.trace(tmp_path):
+        torch.cuda._sleep(100000)
+        call()
+        torch.cuda.synchronize()
+        for _ in range(ncalls):
+            with torch.profiler.record_function("test.call"):
+                call()
+    assert pw.MEANS_LAUNCHES == before + 1 + ncalls
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+
+    def inside(lo, hi, cats):
+        return [e for e in events if e.get("cat") in cats
+                and lo <= e["ts"] and e["ts"] + e["dur"] <= hi]
+
+    def correlation(e):
+        return (e.get("args") or {}).get("correlation")
+
+    calls = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"] == "test.call")
+    assert len(calls) == ncalls
+    launched = {correlation(e) for lo, hi in calls
+                for e in inside(lo, hi, ("cuda_runtime", "cuda_driver"))}
+    launched.discard(None)
+    device = [e["name"] for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and correlation(e) in launched]
+    assert len(device) / ncalls == 8, sorted(n[:48] for n in device)
+    assert sum("means_kernel" in k for k in device) == ncalls
+    assert sum("reduce_kernel" in k for k in device) == 2 * ncalls
+    for lo, hi in calls:
+        stages = {e["name"]: (e["ts"], e["ts"] + e["dur"])
+                  for e in inside(lo, hi, ("user_annotation",))}
+        prologue, launch = (
+            [e["name"] for e in inside(*stages[name],
+                                       ("cuda_runtime", "cuda_driver"))]
+            for name in ("welch_cuda.prologue", "welch_cuda.launch"))
+        assert sum("Launch" in n for n in prologue) == 3, prologue
+        assert not [n for n in prologue + launch
+                    if "Synchronize" in n or "Memcpy" in n]
+
+
 def _stft_sizes():
     """Every power of two 16..16384 with half-overlapping segments, real:
     an odd navr (5) at even log2 N, an even one (6) at odd log2 N."""
